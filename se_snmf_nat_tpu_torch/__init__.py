@@ -1,0 +1,21 @@
+"""se_snmf_nat_tpu_torch — PyTorch/CUDA port of the sparse-NMF speech
+enhancer for NVIDIA Hopper (H100, sm_90a).
+
+The JAX package ``se_snmf_nat_tpu`` stays the reference; this package mirrors
+its paths so each module has a counterpart there, and shares its host-only
+(NumPy) modules instead of copying them: ``config``, ``headline``'s
+``HEADLINE_PLAN``, ``utils.matlab_compat`` and ``io.wavio``.  Nothing here
+imports JAX.
+
+Layer map of the ported slice (the block-adaptive production plan):
+  device.py   — CUDA/sm_90 check and the full-f32 (TF32 off) policy
+  dsp/        — framing, analysis/synthesis transforms, overlap-add
+  nmf/        — KL sparse-NMF solvers (the oracles of the kernels)
+  kernels/    — hand-written CUDA MU-solve kernels + their plain versions
+  enhance/    — engine state, block-sparsity statistic Q
+  stream/     — block-adaptive run and the ``SnmfEnhancer`` facade
+  convert.py  — dictionaries and state carried across from the JAX side
+  fixtures.py — seeded synthetic bases and signals (NumPy only)
+"""
+
+__version__ = "0.1.0"
