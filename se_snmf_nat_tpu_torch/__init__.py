@@ -7,13 +7,18 @@ its paths so each module has a counterpart there, and shares its host-only
 ``HEADLINE_PLAN``, ``utils.matlab_compat`` and ``io.wavio``.  Nothing here
 imports JAX.
 
-Layer map of the ported slice (the block-adaptive production plan):
+Layer map of the ported slices (the block-adaptive production plan and the
+non-adaptive fast plan):
   device.py   — CUDA/sm_90 check and the full-f32 (TF32 off) policy
-  dsp/        — framing, analysis/synthesis transforms, overlap-add
+  dsp/        — framing, analysis/synthesis transforms, overlap-add, the
+                mel filterbank
   nmf/        — KL sparse-NMF solvers (the oracles of the kernels)
-  kernels/    — hand-written CUDA MU-solve kernels + their plain versions
+  kernels/    — hand-written CUDA MU-solve kernels (K1, K2 for the block
+                plan, K3 for the fast plan) + their plain versions
   enhance/    — engine state, block-sparsity statistic Q
-  stream/     — block-adaptive run and the ``SnmfEnhancer`` facade
+  stream/     — block-adaptive run, fast run and the ``SnmfEnhancer``
+                facade (``block_adapt > 0``: block plan; ``block_adapt=0``
+                on a fixed-dictionary config: fast plan)
   convert.py  — dictionaries and state carried across from the JAX side
   fixtures.py — seeded synthetic bases and signals (NumPy only)
 """

@@ -23,9 +23,14 @@ def _centers(n_bins: int, p_len_k: int, dc_bin: int, gap: int) -> np.ndarray:
 
 def snr_column(xm: torch.Tensor, dm: torch.Tensor,
                nonzerofloor: float) -> torch.Tensor:
-    """Max-normalised local-SNR columns (..., F) the ring stores."""
+    """Max-normalised local-SNR columns (..., F) the ring stores.  A column
+    whose speech reconstruction is all zero (a silent frame in float32 with
+    denormals flushed to zero) stays zero: the reference's 0/0 there gives
+    NaN, which the banded window products then spread to every frame of the
+    utterance (0 * NaN)."""
     snr = xm / torch.clamp(dm, min=nonzerofloor)
-    return snr / torch.amax(snr, dim=-1, keepdim=True)
+    peak = torch.amax(snr, dim=-1, keepdim=True)
+    return snr / torch.where(peak > 0, peak, torch.ones_like(peak))
 
 
 def make_block_sparsity_q_block(k_block: int, *, n_bins: int, p_len_k: int,

@@ -2,9 +2,10 @@
 ctypes.
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` compiles every ``csrc/*.cu`` into one shared library with
-a plain C interface, under ``build/kernels/`` at the root of the checkout
-(listed in ``.gitignore``).  The library's name carries a hash of the sources
+-Xcompiler -fPIC`` compiles every ``csrc/*.cu`` (with the headers
+``csrc/*.cuh`` they include) into one shared library with a plain C
+interface, under ``build/kernels/`` at the root of the checkout (listed in
+``.gitignore``).  The library's name carries a hash of the sources, headers
 and flags, so an edited source builds anew.  No fast math: the kernels'
 relative-cost stop relies on IEEE inf/NaN and an accurate ``logf``.
 
@@ -30,11 +31,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the entries (see the sources)
 SIGNATURES = {
-    "mu_h_solve_lanes": [_P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P, _P,
-                         _P, _I, _I, _I, _I, _I, _F, _F, _F, _P],
+    "mu_h_solve_lanes": [_P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _F, _F, _F, _P],
+    "mu_h_solve_columns": [_P, _L, _L, _P, _P, _L, _L, _P, _L, _L, _P, _P, _P,
+                           _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     "mu_w_solve_lanes": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _F, _F, _F, _P],
 }
@@ -71,7 +75,7 @@ def _sources() -> list[Path]:
 
 def _digest(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -92,9 +96,10 @@ def load() -> KernelLibrary:
     log_path = out.with_suffix(".log")
     t0 = time.perf_counter()
     if not out.exists():
+        nvcc = _nvcc()
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log_path.write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:

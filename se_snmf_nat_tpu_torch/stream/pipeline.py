@@ -1,13 +1,16 @@
 """Offline / batched enhancement (port of
-``se_snmf_nat_tpu.stream.pipeline``), block-adaptive plan only.
+``se_snmf_nat_tpu.stream.pipeline``): the block-adaptive plan
+(``block_adapt > 0``) and the non-adaptive fast plan (``block_adapt=0`` on
+a config where ``supports_fast_plan`` holds).
 
   host:   int16-scale samples -> zero-padded sample matrix
-  device: framing -> analysis -> block-adaptive run -> synthesis -> OLA
-          -> MATLAB-exact int16 write
+  device: framing -> analysis -> block-adaptive or fast run -> synthesis
+          -> OLA -> MATLAB-exact int16 write
   host:   delay trim -> wavwrite requantisation
 
 Utterances batch as lanes; right-padding with zero frames is inert because
-padding frames leave the state untouched and their outputs are sliced off.
+padding frames leave the state untouched (block plan) or are independent
+columns (fast plan), and their outputs are sliced off.
 """
 
 from __future__ import annotations
@@ -21,16 +24,25 @@ from se_snmf_nat_tpu.io.wavio import enhanced_quantize
 from se_snmf_nat_tpu_torch.device import full_f32
 from se_snmf_nat_tpu_torch.dsp.stft import (
     pack_samples_for_upload, stream_frames, stream_frames_torch)
+from se_snmf_nat_tpu_torch.dsp.windows import sqrt_hann_periodic
 from se_snmf_nat_tpu_torch.enhance.state import (
     batch_state, init_engine_state, lane_state)
 from se_snmf_nat_tpu_torch.stream.block_adaptive import (
     make_block_adaptive_run)
+from se_snmf_nat_tpu_torch.stream.fast_pipeline import (
+    make_fast_run, supports_fast_plan)
 from se_snmf_nat_tpu_torch.utils.matlab_compat import (
     matlab_int16_write_torch, matlab_wavwrite_quantize)
 
 
+_EXACT_PLAN = ("the exact per-frame plan (enhance/engine.py), which the "
+               "port does not have yet (see ROADMAP.md, modules to port)")
+
+
 class SnmfEnhancer(nn.Module):
-    """Block-adaptive SNMF-NAT enhancer on one device.
+    """SNMF-NAT enhancer on one device: the block-adaptive plan for
+    ``block_adapt > 0``, else the fast plan where ``supports_fast_plan``
+    holds.
 
     Bases are (F, r) arrays or tensors.  ``dft_precision`` and
     ``idft_precision`` name TPU matmul precisions and are accepted for the
@@ -48,23 +60,30 @@ class SnmfEnhancer(nn.Module):
         del dft_precision, idft_precision
         full_f32()
         self.cfg = cfg or default_config()
-        if block_adapt <= 0:
+        if block_adapt <= 0 and not supports_fast_plan(self.cfg):
             raise NotImplementedError(
-                "block_adapt=0 selects the exact per-frame plan (and the "
-                "fast plan); the port has only the block-adaptive plan so "
-                "far (see ROADMAP.md, modules to port)")
+                f"block_adapt=0 on a config with an adaptive dictionary "
+                f"selects {_EXACT_PLAN}")
         self.device = torch.device(device) if device is not None \
             else torch.device("cpu")
         self.dtype = dtype
         self.frame_bucket = max(int(frame_bucket), 1)
-        if self.frame_bucket % block_adapt:
-            # padding frames are inert, so round up to block alignment
-            self.frame_bucket = (-(-self.frame_bucket // block_adapt)
-                                 * block_adapt)
-        self.run = make_block_adaptive_run(
-            self.cfg, b1_x, b1_d, b2_x, b2_d, self.device, dtype,
-            block_adapt, block_iter_cap, dft_matmul=dft_matmul,
-            refit_iter_cap=block_refit_cap, fixed_iter=block_fixed_iter)
+        self.run = self.fast_run = None
+        if block_adapt > 0:
+            if self.frame_bucket % block_adapt:
+                # padding frames are inert, so round up to block alignment
+                self.frame_bucket = (-(-self.frame_bucket // block_adapt)
+                                     * block_adapt)
+            self.run = make_block_adaptive_run(
+                self.cfg, b1_x, b1_d, b2_x, b2_d, self.device, dtype,
+                block_adapt, block_iter_cap, dft_matmul=dft_matmul,
+                refit_iter_cap=block_refit_cap, fixed_iter=block_fixed_iter)
+        else:
+            self.fast_run = make_fast_run(self.cfg, b1_x, b1_d, b2_x, b2_d,
+                                          self.device, dtype, dft_matmul)
+            self.register_buffer("win", torch.as_tensor(
+                sqrt_hann_periodic(self.cfg.signal.framelength), dtype=dtype,
+                device=self.device))
         self._state0 = init_engine_state(
             self.cfg, b1_d, self.cfg.signal.n_bins, self.device, dtype,
             matlab_ad_blk_init)
@@ -89,15 +108,25 @@ class SnmfEnhancer(nn.Module):
     def enhance(self, x: np.ndarray, state=None, return_state: bool = False,
                 quantize: bool = True):
         """Enhance one utterance of int16-scale samples (NumPy in, NumPy
-        out); ``state`` is an unbatched ``EngineState``."""
+        out); ``state`` is an unbatched ``EngineState``.  The fast plan
+        carries no state: ``state`` and ``return_state`` there select the
+        exact plan, which raises."""
         s = self.cfg.signal
+        if self.fast_run is not None and (state is not None or return_state):
+            raise NotImplementedError(
+                f"a carried state on a fixed-dictionary config selects "
+                f"{_EXACT_PLAN}")
         true_frames = self.frames_for(x)
         t = true_frames.shape[0]
         frames = torch.as_tensor(self._pad_frames(true_frames),
                                  dtype=self.dtype, device=self.device)
-        st = batch_state(state if state is not None else self._state0, 1)
-        y, st_out = self.run(frames[None], st,
-                             torch.tensor([t], device=self.device))
+        st_out = None
+        if self.fast_run is not None:
+            y = self.fast_run(frames[None], self.win)
+        else:
+            st = batch_state(state if state is not None else self._state0, 1)
+            y, st_out = self.run(frames[None], st,
+                                 torch.tensor([t], device=self.device))
         start = self.cfg.delay * s.frameshift
         emit = y[0, start: start + (t - self.cfg.delay) * s.frameshift]
         emit = emit.cpu().numpy()
@@ -124,7 +153,8 @@ class SnmfEnhancer(nn.Module):
             * self.frame_bucket
         np_dt = np.float64 if self.dtype == torch.float64 else np.float32
         mb = len(xs) if not micro_batch else min(int(micro_batch), len(xs))
-        states = batch_state(self._state0, mb)
+        states = batch_state(self._state0, mb) if self.run is not None \
+            else None
 
         def dispatch(chunk, n_hops, t_true):
             n = len(chunk)
@@ -141,8 +171,11 @@ class SnmfEnhancer(nn.Module):
             frames = stream_frames_torch(
                 smp_dev, torch.as_tensor(nh, device=self.device),
                 s.framelength, shift)
-            ys, _ = self.run(frames, states,
-                             torch.as_tensor(tt, device=self.device))
+            if self.fast_run is not None:
+                ys = self.fast_run(frames, self.win)
+            else:
+                ys, _ = self.run(frames, states,
+                                 torch.as_tensor(tt, device=self.device))
             return matlab_int16_write_torch(ys)  # on the device, not fetched
 
         pending = [dispatch(xs[c0: c0 + mb], n_hops_all[c0: c0 + mb],

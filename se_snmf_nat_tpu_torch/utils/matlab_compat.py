@@ -1,7 +1,8 @@
 """MATLAB-compatibility numerics on tensors.
 
-The NumPy generators and quantizers (``MatlabTwister``,
-``matlab_v4_rand_matrix``, ``matlab_wavwrite_quantize``) are shared from the
+The NumPy generators and rounding (``MatlabTwister``,
+``matlab_v4_rand_matrix``, ``matlab_round``, ``matlab_wavwrite_quantize``)
+are shared from the
 JAX package's host module, which imports no JAX; only the on-device int16
 write is ported here.
 """
@@ -11,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from se_snmf_nat_tpu.utils.matlab_compat import (  # noqa: F401  (shared)
-    MatlabTwister, matlab_v4_rand_matrix, matlab_wavwrite_quantize)
+    MatlabTwister, matlab_round, matlab_v4_rand_matrix,
+    matlab_wavwrite_quantize)
 
 
 def matlab_int16_write_torch(y: torch.Tensor) -> torch.Tensor:

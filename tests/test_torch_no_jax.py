@@ -25,6 +25,8 @@ def _run(code: str, cwd=ROOT, env_extra=None):
     "se_snmf_nat_tpu_torch.kernels.mu",
     "se_snmf_nat_tpu_torch.convert",
     "se_snmf_nat_tpu_torch.fixtures",
+    "se_snmf_nat_tpu_torch.stream.fast_pipeline",
+    "se_snmf_nat_tpu_torch.dsp.mel",
 ])
 def test_port_imports_without_jax(module):
     proc = _run(f"import sys, importlib; importlib.import_module({module!r});"
