@@ -16,15 +16,18 @@ before printing any result.
    float32 itself is further off (the W-solve's 22 trips amplify f32
    rounding to ~2e-4 on small entries), within twice the float32 plain
    version's own error; where early stops differ only agreeing
-   columns/lanes compare.  K3 runs on the fast plan's own spectra, as the
-   frame-major view it gets there, at R=200, at the exemplar width R=1000
-   and in the Mel mode (F=64).  Each kernel's time beside the plain
-   version's;
+   columns/lanes compare.  K1 runs at the main path's B=16 and B=64
+   (where the last wave's lanes take narrower column groups, also held
+   alone), prints its launch shape and ptxas's registers and spills, and
+   two launches on the same inputs must give the same bits.  K3 runs on the fast plan's own spectra, as the frame-major
+   view it gets there, at R=200, at the exemplar width R=1000 and in the
+   Mel mode (F=64).  Each kernel's time beside the plain version's (K1 at
+   B=16 and B=64, in turns with it);
 4. main path: the headline plan (``HEADLINE_PLAN``) at full width on
    synthetic dictionaries: ``enhance_batch`` on 16 utterances of 3.43 s
    (347 frames, 4 blocks of 88) with the kernels' launch counts, output
-   checks, the correlation with the port's float64 CPU run on 2 lanes, and
-   warm batch times at B=16 and B=64;
+   checks, the correlation with the port's float64 CPU run on 2 lanes,
+   warm batch times at B=16 and B=64 and a profile of one B=64 batch;
 5. fast plan: ``preset("snmf")`` with ``block_adapt=0`` at full width:
    ``enhance_batch`` on 16 utterances with the launch counts (K3 once per
    chunk, K1 and K2 never), the same output checks and correlation, warm
@@ -108,30 +111,75 @@ def compare(name, got, trips, plain_fn, args, lane_axis_trips):
     return abs32
 
 
-def check_h_kernel(mu, dev, rng, card):
-    """K1 at B=8, F=513, R=200, K=88: 22 fixed trips, and eps 1e-3 / cap
-    100; timed at the main path's B=64, 22 fixed trips."""
+def ptxas_lines(log: str, kernel: str) -> list[str]:
+    """ptxas's register and spill lines for one kernel of the build log."""
+    out, on = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            on = kernel in ln
+        elif on and ("registers" in ln or "spill" in ln):
+            out.append(ln.replace("ptxas info    :", "").strip())
+    return out
+
+
+def check_h_kernel(mu, dev, rng, card, log):
+    """K1 at the main path's B=16 and B=64, F=513, R=200, K=88, where the
+    last wave's lanes run in narrower column groups: 22 fixed trips, and
+    eps 1e-3 / cap 100, each launched twice (bit-identical) and held to the
+    plain version on all lanes and on the narrow-group lanes alone; timed
+    with 22 fixed trips, in turns with its plain version."""
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
-    v = t(rng.gamma(0.6, 2.0, (8, 513, 88)))
-    w = t(rng.random((8, 513, 200)) + 1e-3)
+    print(f"kernel K1 ptxas: {' | '.join(ptxas_lines(log, 'h_lanes_kernel'))}")
     h0 = t(rng.random((200, 88)))
     cols = lambda same, h: same[:, None, :].expand_as(h)   # noqa: E731
-    max_abs = 0.0
-    for max_iter, eps in ((22, 0.0), (100, 1e-3)):
-        args = (v, w, h0, max_iter, eps, 5.0, 1e-9)
-        h, trips = mu.mu_h_solve_lanes(*args)
-        err = compare(f"K1 mu_h_solve_lanes trips={max_iter} eps={eps}", h,
-                      trips, mu.mu_h_solve_lanes_ref, args, cols)
-        if eps == 0.0:
-            max_abs = err
-    vb = t(rng.gamma(0.6, 2.0, (64, 513, 88)))
-    wb = t(rng.random((64, 513, 200)) + 1e-3)
-    ms = cuda_ms(lambda: mu.mu_h_solve_lanes(vb, wb, h0, 22, 0.0, 5.0, 1e-9))
-    plain = cuda_ms(lambda: mu.mu_h_solve_lanes_ref(vb, wb, h0, 22, 0.0, 5.0,
-                                                    1e-9))
-    print(f"kernel K1 time B=64 F=513 R=200 K=88 22 trips: {ms:.3f} ms, "
-          f"plain {plain:.3f} ms ({card})")
-    return max_abs, ms, plain
+    max_abs = {}
+    times = {}
+    for b in (16, 64):
+        sh = mu.h_solve_lanes_shape(b, 513, 200, 88)
+        lf = sh["lanes_full"]
+        print(f"kernel K1 launch B={b} F=513 R=200 K=88: clusters of "
+              f"{sh['cluster']} blocks x {sh['threads']} threads, "
+              f"{sh['smem_bytes']} B shared memory a block, "
+              f"{sh['resident_clusters']} clusters resident at once; "
+              f"{lf} lanes in groups of {sh['group']}, the "
+              f"rest in groups of {sh['tail_group']}: {sh['clusters']} "
+              f"clusters")
+        vb = t(rng.gamma(0.6, 2.0, (b, 513, 88)))
+        wb = t(rng.random((b, 513, 200)) + 1e-3)
+        for max_iter, eps in ((22, 0.0), (100, 1e-3)):
+            args = (vb, wb, h0, max_iter, eps, 5.0, 1e-9)
+            h, trips = mu.mu_h_solve_lanes(*args)
+            err = compare(f"K1 mu_h_solve_lanes B={b} trips={max_iter} "
+                          f"eps={eps}", h, trips, mu.mu_h_solve_lanes_ref,
+                          args, cols)
+            if lf < b:
+                compare(f"K1 mu_h_solve_lanes B={b} lanes {lf}-{b - 1} "
+                        f"(groups of {sh['tail_group']}) trips={max_iter} "
+                        f"eps={eps}", h[lf:], trips[lf:],
+                        mu.mu_h_solve_lanes_ref,
+                        (vb[lf:], wb[lf:], *args[2:]), cols)
+            h2, trips2 = mu.mu_h_solve_lanes(*args)
+            same = torch.equal(h, h2) and torch.equal(trips, trips2)
+            print(f"kernel K1 B={b} trips={max_iter} eps={eps}: two "
+                  f"launches bit-identical {same}")
+            if not same:
+                raise AssertionError("two K1 launches on the same inputs "
+                                     "differ")
+            if eps == 0.0:
+                max_abs[b] = err
+        args = (vb, wb, h0, 22, 0.0, 5.0, 1e-9)
+        p1 = cuda_ms(lambda: mu.mu_h_solve_lanes_ref(*args))
+        k1 = cuda_ms(lambda: mu.mu_h_solve_lanes(*args))
+        k2 = cuda_ms(lambda: mu.mu_h_solve_lanes(*args))
+        p2 = cuda_ms(lambda: mu.mu_h_solve_lanes_ref(*args))
+        times[b] = (min(k1, k2), min(p1, p2))
+        gflop = 4.0 * 513 * 200 * 88 * 22 * b / 1e9
+        print(f"kernel K1 time B={b} F=513 R=200 K=88 22 trips: {k1:.3f}, "
+              f"{k2:.3f} ms, plain {p1:.3f}, {p2:.3f} ms (in turns plain, "
+              f"kernel, kernel, plain); GFLOP/s "
+              f"{gflop / times[b][0] * 1e3:.1f} (plain "
+              f"{gflop / times[b][1] * 1e3:.1f}) ({card})")
+    return max_abs, times
 
 
 def check_w_kernel(mu, dev, rng, card):
@@ -244,9 +292,10 @@ def check_cols_kernel(mu, dev, card):
     return max_abs, ms, plain
 
 
-def profile_batch(enh, batch):
+def profile_batch(enh, batch, names):
     """Device time by kernel of one warm ``enhance_batch`` call: (wall s,
-    K3 ms, other device ms, kernels launched, device busy share)."""
+    ms of the kernels whose names contain one of ``names``, other device
+    ms, kernels launched, device busy share)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -255,19 +304,19 @@ def profile_batch(enh, batch):
         enh.enhance_batch(batch, micro_batch=None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    k3 = other = 0.0
+    mine = other = 0.0
     n_kernels = 0
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
         dev_us = ev.self_device_time_total
-        if "h_cols_kernel" in ev.key or "normalize_w_kernel" in ev.key:
-            k3 += dev_us / 1e3
+        if any(name in ev.key for name in names):
+            mine += dev_us / 1e3
         else:
             other += dev_us / 1e3
         n_kernels += ev.count
-    busy = (k3 + other) / (wall * 1e3)
-    return wall, k3, other, n_kernels, busy
+    busy = (mine + other) / (wall * 1e3)
+    return wall, mine, other, n_kernels, busy
 
 
 def check_fast_plan(dev, card):
@@ -344,7 +393,8 @@ def check_fast_plan(dev, card):
                   f"{[round(x, 4) for x in times]}, "
                   f"{b * audio_s / best:.1f} audio-s/s ({card})")
         if name == "snmf":
-            wall, k3, other, n_k, busy = profile_batch(enh, batch)
+            wall, k3, other, n_k, busy = profile_batch(
+                enh, batch, ("h_cols_kernel", "normalize_w_kernel"))
             print(f"fast plan snmf profile B=64: wall {wall:.4f} s, K3 "
                   f"{k3:.2f} ms, other device {other:.2f} ms, kernels "
                   f"launched {n_k}, device busy {busy:.1%} ({card})")
@@ -377,10 +427,14 @@ def main() -> int:
     print(f"build: {lib.build_seconds:.1f} s -> {lib.path.name}; "
           f"ptxas: {' | '.join(ptxas)}")
 
-    # 3. kernels against their plain versions
-    rng = np.random.default_rng(0)
-    h_err, h_ms, h_plain = check_h_kernel(mu, dev, rng, card)
-    w_err, w_ms, w_plain = check_w_kernel(mu, dev, rng, card)
+    # 3. kernels against their plain versions; each check draws its inputs
+    # from a generator of its own, so one check's draws never move another's
+    h_errs, h_times = check_h_kernel(mu, dev, np.random.default_rng(0), card,
+                                     lib.log)
+    h_err = h_errs[HEADLINE_BATCH]
+    h_ms, h_plain = h_times[HEADLINE_BATCH]
+    w_err, w_ms, w_plain = check_w_kernel(mu, dev, np.random.default_rng(0),
+                                          card)
     c_err, c_ms, c_plain = check_cols_kernel(mu, dev, card)
 
     # 4. the main path
@@ -444,6 +498,10 @@ def main() -> int:
         print(f"main path warm enhance_batch B={b} ({b * audio_s:.2f} audio "
               f"s): best {best:.4f} s of {[round(x, 4) for x in times]}, "
               f"{b * audio_s / best:.1f} audio-s/s ({card})")
+    wall, k1, other, n_k, busy = profile_batch(enh, batch, ("h_lanes_kernel",))
+    print(f"main path profile B={b}: wall {wall:.4f} s, K1 {k1:.2f} ms, "
+          f"other device {other:.2f} ms, kernels launched {n_k}, device "
+          f"busy {busy:.1%} ({card})")
 
     # 5. the fast plan
     c_launches = check_fast_plan(dev, card)

@@ -1,6 +1,6 @@
-// The per-column KL H-solve of one 16-column tile, shared by the H-solve
-// kernels (mu_h_solve.cu: one W per lane; mu_h_cols.cu: one W shared by
-// every column).
+// The per-column KL H-solve of one 16-column tile: the tile loop of the
+// shared-dictionary H-solve (mu_h_cols.cu, one W for every column).  The
+// per-lane H-solve (mu_h_solve.cu) has its own design.
 //
 // Problem of a tile:  V (F, TN), W (F, R), H (R, TN), columns independent.
 //   W <- W / ||W||_col,  H <- H0 * ||W||_col,  dph = max(1'W + sparsity, flr)
@@ -17,8 +17,11 @@
 //   W H:  one thread per row f of L, reads W'[r][f] (neighbouring f) and
 //         H[r][:] as four float4 broadcasts; the same thread forms U and the
 //         KL cost terms of its row.
-// Bound: each trip is 2*F*R*TN FMAs per block against shared-memory
-// operands (f32 FMA pipes and shared-memory bandwidth, not device memory).
+// Bound: each trip is 2*F*R*TN FMAs per block, one W value read from L2 for
+// every 16 FMAs (both layouts of one shared W, 820 KB at F=513, R=200, stay
+// L2-resident for every block); f32 FMA pipes and L2 latency, not device
+// memory.  With one W per lane (B=64 lanes: 52.5 MB in both layouts, above
+// the 50 MB L2) part of W would come from device memory.
 //
 // No fast math: the relative-cost test relies on IEEE inf/NaN at trip 0
 // (|cost - inf| / inf is NaN, and NaN < eps is false) and on an accurate

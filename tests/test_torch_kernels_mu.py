@@ -171,19 +171,41 @@ def _hold_to_plain(got, trips, plain_fn, args, sel_fn):
 @pytest.mark.gpu
 def test_cuda_kernels_match_plain_versions():
     """Each CUDA kernel against its plain version on the card, at small
-    shapes with a ragged column tile, an inactive lane and masked columns."""
+    shapes with an inactive lane and masked columns.  K1 at B=1 and 3, K=37,
+    88 and 200 columns (200 spans three column groups), R=40 and 200, and
+    the block plan's largest shape (F=513, R=400: four groups of 25 at
+    K=100); two launches on the same inputs give the same bits, and so does
+    a lane solved alone and in a batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels are CUDA C++ for sm_90a)")
     from se_snmf_nat_tpu_torch.device import require_cuda
     dev = require_cuda()
-    v, w, h0 = _h_inputs(6, b=3, f=129, r=40, n=37)
     t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
     cols = lambda same, shape: np.broadcast_to(    # noqa: E731
         same[:, None, :], shape)
+    shapes = [(b, 129, r, k) for b in (1, 3) for k in (37, 88, 200)
+              for r in (40, 200)] + [(1, 513, 400, 100)]
+    for b, f, r, k in shapes:
+        v, w, h0 = _h_inputs(6, b=b, f=f, r=r, n=k)
+        for max_iter, eps in ((22, 0.0), (100, 1e-3)):
+            args = (t(v), t(w), t(h0), max_iter, eps, 5.0, 1e-9)
+            n0 = mu.mu_h_solve_lanes.launches
+            h, trips = mu.mu_h_solve_lanes(*args)
+            assert mu.mu_h_solve_lanes.launches == n0 + 1
+            _hold_to_plain(h, trips, mu.mu_h_solve_lanes_ref, args, cols)
+            h2, trips2 = mu.mu_h_solve_lanes(*args)
+            assert torch.equal(h, h2) and torch.equal(trips, trips2)
+    # a lane gives the same bits alone as in a batch whose last lanes the
+    # wave tail cuts into narrower column groups
+    v, w, h0 = _h_inputs(8, b=17, f=513, r=200, n=88)
     for max_iter, eps in ((22, 0.0), (100, 1e-3)):
-        args = (t(v), t(w), t(h0), max_iter, eps, 5.0, 1e-9)
-        h, trips = mu.mu_h_solve_lanes(*args)
-        _hold_to_plain(h, trips, mu.mu_h_solve_lanes_ref, args, cols)
+        h, trips = mu.mu_h_solve_lanes(t(v), t(w), t(h0), max_iter, eps, 5.0,
+                                       1e-9)
+        for i in (0, 16):
+            hi, ti = mu.mu_h_solve_lanes(t(v[i:i + 1]), t(w[i:i + 1]), t(h0),
+                                         max_iter, eps, 5.0, 1e-9)
+            assert torch.equal(h[i:i + 1], hi) and torch.equal(trips[i:i + 1],
+                                                               ti)
     vw, w0, hh, _ = _w_inputs(7, b=4, f=129, r=12, m=20)
     act = torch.tensor([True, False, True, True], device=dev)
     args = (t(vw), t(w0), t(hh), act, 22, 1e-3, 5.0, 1e-9)
