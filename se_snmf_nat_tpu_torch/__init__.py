@@ -2,14 +2,17 @@
 enhancer for NVIDIA Hopper (H100, sm_90a).
 
 The JAX package ``se_snmf_nat_tpu`` stays the reference; this package mirrors
-its paths so each module has a counterpart there, and shares its host-only
-(NumPy) modules instead of copying them: ``config``, ``headline``'s
+its paths so each module has a counterpart there, and keeps its own copy of
+the host-only (NumPy) modules it needs: ``config``, ``headline``'s
 ``HEADLINE_PLAN``, ``utils.matlab_compat`` and ``io.wavio``.  Nothing here
-imports JAX.
+imports JAX or the reference package.  Entry points run on the card unless
+the caller names a device (``device="cpu"`` for the CPU).
 
 Layer map of the ported slices (the block-adaptive production plan and the
 non-adaptive fast plan):
-  device.py   — CUDA/sm_90 check and the full-f32 (TF32 off) policy
+  config.py   — the typed configuration and its presets
+  device.py   — CUDA/sm_90 check, the card-by-default rule and the full-f32
+                (TF32 off) policy
   dsp/        — framing, analysis/synthesis transforms, overlap-add, the
                 mel filterbank
   nmf/        — KL sparse-NMF solvers (the oracles of the kernels)
@@ -19,7 +22,9 @@ non-adaptive fast plan):
   stream/     — block-adaptive run, fast run and the ``SnmfEnhancer``
                 facade (``block_adapt > 0``: block plan; ``block_adapt=0``
                 on a fixed-dictionary config: fast plan)
-  convert.py  — dictionaries and state carried across from the JAX side
+  io/         — the enhanced-output quantisation chain
+  convert.py  — config, dictionaries and state carried across from the JAX
+                side
   fixtures.py — seeded synthetic bases and signals (NumPy only)
 """
 

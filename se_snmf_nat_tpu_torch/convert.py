@@ -1,24 +1,49 @@
-"""Carry the JAX side's dictionaries and engine state across to the port.
+"""Carry the JAX side's configuration, dictionaries and engine state across
+to the port.
 
-The reference package's dictionaries are NumPy arrays and its state is an
-``EngineState`` NamedTuple of arrays; these helpers take them as NumPy (or
-anything with the same field names) so both packages start from identical
-values.  Nothing here imports JAX.
+The reference package's config is a tree of dataclasses, its dictionaries
+are NumPy arrays and its state is an ``EngineState`` NamedTuple of arrays;
+these helpers take them by their field names (any object that has them) so
+both packages start from identical values.  Nothing here imports JAX or the
+reference package.  Tensors land on the card unless ``device`` names
+another.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from se_snmf_nat_tpu_torch.config import PipelineConfig
+from se_snmf_nat_tpu_torch.device import resolve_device
 from se_snmf_nat_tpu_torch.enhance.state import EngineState
 
 _INT_FIELDS = {"update_switch": torch.int32, "adapt_on": torch.bool}
 
 
+def _section(cls, src):
+    """``cls`` built from the fields of ``src``, nested sections included."""
+    vals = {}
+    for f in dataclasses.fields(cls):
+        val = getattr(src, f.name)
+        held = getattr(cls(), f.name)
+        vals[f.name] = (_section(type(held), val)
+                        if dataclasses.is_dataclass(held) else val)
+    return cls(**vals)
+
+
+def config_from_jax(cfg) -> PipelineConfig:
+    """The port's ``PipelineConfig`` from the reference's (or any object with
+    its fields): every section and field copied by name."""
+    return _section(PipelineConfig, cfg)
+
+
 def bases_to_torch(b1_x, b1_d, b2_x, b2_d, device=None,
                    dtype=torch.float32):
     """The four (F, r) dictionaries as tensors on ``device``."""
+    device = resolve_device(device)
     return tuple(torch.as_tensor(np.asarray(b), dtype=dtype, device=device)
                  for b in (b1_x, b1_d, b2_x, b2_d))
 
@@ -26,6 +51,7 @@ def bases_to_torch(b1_x, b1_d, b2_x, b2_d, device=None,
 def state_from_jax(state, device=None, dtype=torch.float32) -> EngineState:
     """The port's ``EngineState`` from a reference state of NumPy arrays
     (batched or not: shapes are kept)."""
+    device = resolve_device(device)
     fields = {}
     for name in EngineState._fields:
         a = np.array(getattr(state, name))      # a writable copy

@@ -1,6 +1,6 @@
-// The per-column KL H-solve of one 16-column tile: the tile loop of the
-// shared-dictionary H-solve (mu_h_cols.cu, one W for every column).  The
-// per-lane H-solve (mu_h_solve.cu) has its own design.
+// The L2-streaming path of the shared-dictionary per-column KL H-solve
+// (mu_h_cols.cu): one block per 16-column tile, for the shapes whose slice
+// of W does not fit in a block's shared memory (the exemplar width R=1000).
 //
 // Problem of a tile:  V (F, TN), W (F, R), H (R, TN), columns independent.
 //   W <- W / ||W||_col,  H <- H0 * ||W||_col,  dph = max(1'W + sparsity, flr)
@@ -8,20 +8,23 @@
 // and each column freezes at its own relative-cost stop
 // (se_snmf_nat_tpu/nmf/solver.py:snmf_h_solve_columns); with
 // conv_eps <= 0 every column runs max_iter trips and the cost is skipped.
+// A tile stops when its last column stops.
 //
-// Layout.  V and U = V/L (2 x F x TN f32) and H (R x TN) live in shared
-// memory; W streams from L2 twice per trip, once in each layout so both
-// products read it coalesced:
+// Layout.  W is normalised once by a first kernel into both layouts
+// (L2-resident, shared by every block).  V and U = V/L (2 x F x TN f32) and
+// H (R x TN) live in shared memory; W streams from L2 twice per trip, once
+// in each layout so both products read it coalesced:
 //   W'U:  one thread per row r of H, reads W[f][r] (neighbouring r) and the
 //         16 values of U[f][:] as four float4 shared-memory broadcasts;
 //   W H:  one thread per row f of L, reads W'[r][f] (neighbouring f) and
 //         H[r][:] as four float4 broadcasts; the same thread forms U and the
 //         KL cost terms of its row.
+// The block's thread count follows the shape (stream_threads): the rows of
+// F are spread evenly over the fewest rounds of at most 288 threads, so that
+// no round runs a handful of threads (F=513: two rounds of 288 threads, not
+// two of 256 and a third of one).
 // Bound: each trip is 2*F*R*TN FMAs per block, one W value read from L2 for
-// every 16 FMAs (both layouts of one shared W, 820 KB at F=513, R=200, stay
-// L2-resident for every block); f32 FMA pipes and L2 latency, not device
-// memory.  With one W per lane (B=64 lanes: 52.5 MB in both layouts, above
-// the 50 MB L2) part of W would come from device memory.
+// every 16 FMAs; f32 FMA pipes and L2 latency, not device memory.
 //
 // No fast math: the relative-cost test relies on IEEE inf/NaN at trip 0
 // (|cost - inf| / inf is NaN, and NaN < eps is false) and on an accurate
@@ -36,59 +39,56 @@
 // source that includes it gets its own copy.
 namespace {
 
-constexpr int TN = 16;         // columns per block
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int NORM_THREADS = 32;   // columns of W per normalisation block
-constexpr size_t MAX_SMEM = 232448;   // 227 KB: a block's dynamic limit
+constexpr int TN = 16;               // columns per block
+constexpr int STREAM_MAX_THREADS = 288;
+constexpr int NORM_THREADS = 32;     // columns of W per normalisation block
+constexpr size_t MAX_SMEM = 232448;  // 227 KB: a block's dynamic limit
+
+// Threads of a tile's block: the rows of F evenly over the fewest rounds of
+// at most STREAM_MAX_THREADS, a multiple of 32, and no fewer than the rows
+// of H need (up to the same maximum).
+inline int stream_threads(int F, int R) {
+  const int rounds = (F + STREAM_MAX_THREADS - 1) / STREAM_MAX_THREADS;
+  int t = ((F + rounds - 1) / rounds + 31) & ~31;
+  const int for_r = ((R < STREAM_MAX_THREADS ? R : STREAM_MAX_THREADS) + 31)
+                    & ~31;
+  if (t < for_r) t = for_r;
+  return t < STREAM_MAX_THREADS ? t : STREAM_MAX_THREADS;
+}
 
 // Dynamic shared memory of one tile.
-inline size_t tile_smem_bytes(int F, int R) {
-  return sizeof(float) * ((size_t)2 * F * TN + (size_t)R * TN + WARPS * TN
-                          + TN)
+inline size_t tile_smem_bytes(int F, int R, int threads) {
+  return sizeof(float) * ((size_t)2 * F * TN + (size_t)R * TN
+                          + (threads / 32) * TN + TN)
          + sizeof(int) * (2 * TN + 1);
 }
 
-// Normalise each lane's W (F, R) once, into both layouts, with its column
-// norms and dph.  Grid (ceil(R / NORM_THREADS), lanes), one thread per
-// column of W.
+// Normalise W (F, R) once, into both layouts, with its column norms and
+// dph.  Grid ceil(R / NORM_THREADS), one thread per column of W.
 __global__ void normalize_w_kernel(const float* __restrict__ w,
                                    float* __restrict__ wn_out,
                                    float* __restrict__ w_n,
                                    float* __restrict__ w_t,
                                    float* __restrict__ dph,
                                    int F, int R, float sparsity, float flr) {
-  const int b = blockIdx.y;
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
-  const float* wl = w + (size_t)b * F * R;
-  float* wnl = w_n + (size_t)b * F * R;
-  float* wtl = w_t + (size_t)b * R * F;
   float ss = 0.f;
   for (int f = 0; f < F; ++f) {
-    const float x = wl[(size_t)f * R + r];
+    const float x = w[(size_t)f * R + r];
     ss += x * x;
   }
   const float norm = sqrtf(ss);
   const float safe = norm > 0.f ? norm : 1.f;
   float colsum = 0.f;
   for (int f = 0; f < F; ++f) {
-    const float x = wl[(size_t)f * R + r] / safe;
-    wnl[(size_t)f * R + r] = x;
-    wtl[(size_t)r * F + f] = x;
+    const float x = w[(size_t)f * R + r] / safe;
+    w_n[(size_t)f * R + r] = x;
+    w_t[(size_t)r * F + f] = x;
     colsum += x;
   }
-  wn_out[(size_t)b * R + r] = norm;
-  dph[(size_t)b * R + r] = fmaxf(colsum + sparsity, flr);
-}
-
-inline cudaError_t normalize_w(const float* w, float* wn, float* w_n,
-                               float* w_t, float* dph, int B, int F, int R,
-                               float sparsity, float flr, cudaStream_t s) {
-  dim3 grid((R + NORM_THREADS - 1) / NORM_THREADS, B);
-  normalize_w_kernel<<<grid, NORM_THREADS, 0, s>>>(w, wn, w_n, w_t, dph, F,
-                                                   R, sparsity, flr);
-  return cudaGetLastError();
+  wn_out[r] = norm;
+  dph[r] = fmaxf(colsum + sparsity, flr);
 }
 
 // The tile's shared memory, carved from the dynamic allocation.
@@ -96,7 +96,7 @@ struct Tile {
   float* sV;      // F * TN   V floored
   float* sU;      // F * TN   V / L
   float* sH;      // R * TN
-  float* sRed;    // WARPS * TN
+  float* sRed;    // warps * TN
   float* sLast;   // TN
   int* sActive;   // TN
   int* sTrips;    // TN
@@ -104,12 +104,13 @@ struct Tile {
 };
 
 __device__ __forceinline__ Tile carve(float* smem, int F, int R) {
+  const int warps = blockDim.x / 32;
   Tile t;
   t.sV = smem;
   t.sU = t.sV + F * TN;
   t.sH = t.sU + F * TN;
   t.sRed = t.sH + R * TN;
-  t.sLast = t.sRed + WARPS * TN;
+  t.sLast = t.sRed + warps * TN;
   t.sActive = reinterpret_cast<int*>(t.sLast + TN);
   t.sTrips = t.sActive + TN;
   t.sAny = t.sTrips + TN;
@@ -123,7 +124,7 @@ __device__ __forceinline__ void lambda_pass(const float* __restrict__ wtl,
                                             float flr, bool cost,
                                             float cpart[TN]) {
   for (int j = 0; j < TN; ++j) cpart[j] = 0.f;
-  for (int f = threadIdx.x; f < F; f += THREADS) {
+  for (int f = threadIdx.x; f < F; f += blockDim.x) {
     float acc[TN];
     for (int j = 0; j < TN; ++j) acc[j] = 0.f;
     for (int r = 0; r < R; ++r) {
@@ -160,6 +161,7 @@ __device__ void solve_tile(const Tile& t, int n_valid,
                            int max_iter, float conv_eps, float sparsity,
                            float flr) {
   const int tid = threadIdx.x;
+  const int threads = blockDim.x, warps = blockDim.x / 32;
   const bool early = conv_eps > 0.f;
   if (tid < TN) {
     t.sActive[tid] = tid < n_valid ? 1 : 0;
@@ -176,7 +178,7 @@ __device__ void solve_tile(const Tile& t, int n_valid,
     if (early && *t.sAny == 0) break;
     if (tid < TN) t.sTrips[tid] += t.sActive[tid];
     // H <- H * W'U / dph on the active columns
-    for (int r = tid; r < R; r += THREADS) {
+    for (int r = tid; r < R; r += threads) {
       float acc[TN];
       for (int j = 0; j < TN; ++j) acc[j] = 0.f;
       for (int f = 0; f < F; ++f) {
@@ -210,7 +212,7 @@ __device__ void solve_tile(const Tile& t, int n_valid,
       __syncthreads();
       if (tid < TN) {
         float div = 0.f;
-        for (int k = 0; k < WARPS; ++k) div += t.sRed[k * TN + tid];
+        for (int k = 0; k < warps; ++k) div += t.sRed[k * TN + tid];
         float pen = 0.f;
         for (int r = 0; r < R; ++r) pen += sparsity * t.sH[r * TN + tid];
         const float cost = div + pen;
@@ -227,6 +229,85 @@ __device__ void solve_tile(const Tile& t, int n_valid,
     }
     __syncthreads();
   }
+}
+
+// Element (i, j) of a strided matrix whose unit-stride axis is taken by
+// neighbouring threads: e counts over rows*TN, row-major over the tile
+// unless the row stride is 1.
+__device__ __forceinline__ void tile_index(int e, int rows, bool rows_unit,
+                                           int& i, int& j) {
+  if (rows_unit) {
+    j = e / rows;
+    i = e - j * rows;
+  } else {
+    i = e / TN;
+    j = e - i * TN;
+  }
+}
+
+__global__ void __launch_bounds__(STREAM_MAX_THREADS)
+h_cols_stream_kernel(const float* __restrict__ v, long long v_sf,
+                     long long v_sn, const float* __restrict__ w_n,
+                     const float* __restrict__ w_t,
+                     const float* __restrict__ h0, long long h0_sr,
+                     long long h0_sn, const float* __restrict__ wn,
+                     const float* __restrict__ dph, float* __restrict__ h_out,
+                     long long h_sr, long long h_sn,
+                     int* __restrict__ trips_out, int F, int R, int N,
+                     int max_iter, float conv_eps, float sparsity,
+                     float flr) {
+  extern __shared__ __align__(16) float smem[];
+  const Tile t = carve(smem, F, R);
+  const int n0 = blockIdx.x * TN;
+  const int tid = threadIdx.x, threads = blockDim.x;
+
+  // tile entry: V floored; H rescaled by the column norms.  Columns past N
+  // in the ragged last tile get V=1, H=0 and stay inactive.
+  for (int e = tid; e < F * TN; e += threads) {
+    int f, j;
+    tile_index(e, F, v_sf == 1, f, j);
+    const int n = n0 + j;
+    t.sV[f * TN + j] = n < N ? fmaxf(v[f * v_sf + n * v_sn], flr) : 1.f;
+  }
+  for (int e = tid; e < R * TN; e += threads) {
+    int r, j;
+    tile_index(e, R, h0_sr == 1, r, j);
+    const int n = n0 + j;
+    t.sH[r * TN + j] = n < N ? h0[r * h0_sr + n * h0_sn] * wn[r] : 0.f;
+  }
+  solve_tile(t, N - n0, w_n, w_t, dph, F, R, max_iter, conv_eps, sparsity,
+             flr);
+
+  for (int e = tid; e < R * TN; e += threads) {
+    int r, j;
+    tile_index(e, R, h_sr == 1, r, j);
+    const int n = n0 + j;
+    if (n < N) h_out[r * h_sr + n * h_sn] = t.sH[r * TN + j];
+  }
+  if (tid < TN && n0 + tid < N) trips_out[n0 + tid] = t.sTrips[tid];
+}
+
+// The streaming path's two launches: W normalised into the scratch buffers
+// (wn, dph (R,); w_n, w_t (F*R)), then one block per 16-column tile.
+inline int stream_solve(const float* v, long long v_sf, long long v_sn,
+                        const float* w, const float* h0, long long h0_sr,
+                        long long h0_sn, float* h, long long h_sr,
+                        long long h_sn, int* trips, float* wn, float* dph,
+                        float* w_n, float* w_t, int F, int R, int N,
+                        int max_iter, float conv_eps, float sparsity,
+                        float flr, int threads, size_t smem, cudaStream_t s) {
+  normalize_w_kernel<<<(R + NORM_THREADS - 1) / NORM_THREADS, NORM_THREADS, 0,
+                       s>>>(w, wn, w_n, w_t, dph, F, R, sparsity, flr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(h_cols_stream_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  h_cols_stream_kernel<<<(N + TN - 1) / TN, threads, smem, s>>>(
+      v, v_sf, v_sn, w_n, w_t, h0, h0_sr, h0_sn, wn, dph, h, h_sr, h_sn,
+      trips, F, R, N, max_iter, conv_eps, sparsity, flr);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

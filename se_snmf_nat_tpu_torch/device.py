@@ -2,8 +2,10 @@
 
 The hand-written kernels target Hopper only (``sm_90a``), so a CUDA entry
 point asks ``require_cuda()`` first: it raises when there is no card or the
-card is not compute capability 9.0.  There is no CPU fallback for CUDA work;
-CPU tensors take the plain PyTorch versions, which the tests use.
+card is not compute capability 9.0.  Every entry point runs on the card by
+default (``resolve_device(None)``) and on the CPU only when the caller says
+``device="cpu"``, as the tests do; there is no CPU fallback for CUDA work.
+CPU tensors take the plain PyTorch versions.
 
 Precision: the JAX package names TPU matmul precisions
 (``dft_precision="high"``, ``idft_precision="default"``,
@@ -38,3 +40,12 @@ def require_cuda() -> torch.device:
                            f"({torch.cuda.get_device_name(0)})")
     full_f32()
     return torch.device("cuda", 0)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device of an entry point: the card (``require_cuda()``, which
+    raises without one) unless the caller names a device; the CPU only on
+    ``device="cpu"``."""
+    if device is None:
+        return require_cuda()
+    return torch.device(device)

@@ -14,7 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from se_snmf_nat_tpu.config import PipelineConfig
+from se_snmf_nat_tpu_torch.config import PipelineConfig
+from se_snmf_nat_tpu_torch.device import resolve_device
 from se_snmf_nat_tpu_torch.utils.matlab_compat import (
     MatlabTwister, matlab_v4_rand_matrix)
 
@@ -37,9 +38,12 @@ def init_engine_state(cfg: PipelineConfig, b_d_sep, n_bins: int,
     """The reference's init_buff.m state.  b_d_sep: separation-domain noise
     basis (F, R_d); its leading R_a columns seed the adapted head.
 
+    The state lies on the card unless ``device`` names another.
+
     matlab_ad_blk_init: seed the activation ring from MATLAB's startup
     Twister stream, as the reference does; else 0.5 everywhere."""
     ad = cfg.adapt
+    device = resolve_device(device)
     b_d_sep = torch.as_tensor(b_d_sep, dtype=dtype, device=device)
     if matlab_ad_blk_init:
         tw = MatlabTwister(0)

@@ -13,14 +13,20 @@
 * ``mu_w_solve_lanes`` (``csrc/mu_w_solve.cu``) replaces
   ``mu_pallas.py:_w_solve_kernel`` / ``pallas_w_solve`` and adds the
   per-lane ``active`` flag of ``snmf_solve``: the per-block refit.  Bound:
-  per-trip reductions over the whole lane, so one block per lane; with B
-  lanes it fills at most B SMs and is latency-bound.
+  f32 FMA.  One cluster of 8 blocks a lane, F split over the blocks, each
+  block's slice of W, U and C and both layouts of H resident in shared
+  memory for every trip, register-tiled FFMA products, and the per-trip sums
+  over F (column norms, ``corr_p``, ``1'W``, the cost) added through
+  distributed shared memory in rank order.  ``mu_w_solve_lanes_twin`` is the
+  plain version of that schedule, for the tests.
 * ``mu_h_solve_columns`` (``csrc/mu_h_cols.cu``) replaces
   ``mu_pallas.py:_h_cols_kernel`` / ``pallas_h_solve_columns``: the fast
-  plan's one H-solve of every frame of a batch on one shared W.  One block
-  per 16-column tile (``csrc/mu_tile.cuh``) with W streamed from L2; the
-  grid runs over column tiles only, so at the fast plan's N = B*T columns
-  it fills every SM.
+  plan's one H-solve of every frame of a batch on one shared W.  Bound: f32
+  FMA.  Persistent clusters of 8 blocks keep their slice of W in shared
+  memory for the whole call and walk over the columns in slots that are
+  refilled as columns stop; where W's slice does not fit (the exemplar
+  width) one block per 16-column tile streams W from L2
+  (``csrc/mu_tile.cuh``).
 
 Each wrapper takes its plain version (``*_ref``) only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises; it never falls back.
@@ -141,6 +147,83 @@ def mu_w_solve_lanes_ref(v, w0, h, active, max_iter: int, conv_eps: float,
     return res.w, res.iters
 
 
+def mu_w_solve_lanes_twin(v, w0, h, active, max_iter: int, conv_eps: float,
+                          sparsity: float, flr: float, cluster: int):
+    """Plain version of ``csrc/mu_w_solve.cu``'s schedule, for the tests
+    (nothing on the main path uses it): F split into ``cluster`` row slices
+    as the kernel splits it (the first F % cluster slices one row longer),
+    and every sum over F taken as per-slice partials added in slice order
+    from zero: the column norms, ``corr_p``, ``1'W`` and the scalar cost.
+    A trip's cost is tested at the start of the next trip, after the next
+    ``C = U H'`` (its partials travel with that trip's column sums), and the
+    last trip's L is skipped, as in the kernel.  Same arguments and results
+    as ``mu_w_solve_lanes``."""
+    b, f, _ = v.shape
+    base, rem = divmod(f, cluster)
+    cuts = [k * base + min(k, rem) for k in range(cluster + 1)]
+    rows = [slice(cuts[k], cuts[k + 1]) for k in range(cluster)]
+
+    def over_slices(fn):
+        tot = 0.0
+        for s in rows:
+            tot = tot + fn(s)
+        return tot
+
+    def normalised(w):
+        norm = torch.sqrt(over_slices(
+            lambda s: torch.sum(w[:, s] * w[:, s], dim=1)))
+        safe = torch.where(norm > 0.0, norm, torch.ones_like(norm))
+        return w / safe[:, None, :], norm
+
+    v = torch.clamp(v, min=flr)
+    w, norm = normalised(w0)
+    hs = h * norm[:, :, None]
+    sumh = torch.sum(hs, dim=-1)                                 # (B, R)
+    pen = torch.sum(sparsity * hs, dim=(-2, -1))
+    hst = hs.transpose(-1, -2)
+    early = conv_eps > 0
+
+    def lambda_pass(w, cost):
+        """U = V / L per slice, and each slice's KL terms."""
+        us, kls = [], []
+        for s in rows:
+            lam = torch.clamp(torch.matmul(w[:, s], hs), min=flr)
+            u = v[:, s] / lam
+            us.append(u)
+            if cost:
+                kls.append(torch.sum(v[:, s] * torch.log(u) - v[:, s] + lam,
+                                     dim=(-2, -1)))
+        return torch.cat(us, dim=1), kls
+
+    run = active.to(torch.bool).clone()
+    trips = torch.zeros((b,), dtype=torch.int32, device=v.device)
+    last = torch.full((b,), float("inf"), dtype=v.dtype, device=v.device)
+    u, kls = lambda_pass(w, False)
+    for it in range(max_iter):
+        c = torch.matmul(u, hst)                                 # (B, F, R)
+        corr_p = over_slices(lambda s: torch.sum(c[:, s] * w[:, s], dim=1))
+        colsum = over_slices(lambda s: torch.sum(w[:, s], dim=1))
+        if early and it > 0:
+            cost = 0.0
+            for kl in kls:
+                cost = cost + kl
+            cost = cost + pen
+            rel = torch.abs(cost - last) / torch.abs(last)
+            done = rel < conv_eps if it > 1 else torch.zeros_like(run)
+            last = torch.where(run, cost, last)
+            run = run & ~done
+        if not bool(run.any()):
+            break
+        trips = trips + run.to(torch.int32)
+        dpw = torch.clamp(sumh[:, None, :] + corr_p[:, None, :] * w, min=flr)
+        dmw = c + (sumh * colsum)[:, None, :] * w
+        w = torch.where(run[:, None, None], normalised(w * dmw / dpw)[0], w)
+        if it == max_iter - 1:
+            break
+        u, kls = lambda_pass(w, early)
+    return w, trips
+
+
 def _check(name, t, shape, dev):
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, expected {dev}")
@@ -153,7 +236,7 @@ def _check(name, t, shape, dev):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _raise_on(rc: int, name: str, unit: str = "a 16-column tile"):
+def _raise_on(rc: int, name: str, unit: str):
     if rc == -1:
         raise ValueError(f"{name}: {unit} of this F and R does not fit in a "
                          f"block's 227 KB of shared memory")
@@ -252,10 +335,11 @@ def mu_h_solve_columns(v: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
     h0 = h0.expand(r, n)
     h = torch.empty((n, r), dtype=torch.float32, device=dev).t()
     trips = torch.empty((n,), dtype=torch.int32, device=dev)
-    wn = torch.empty((r,), dtype=torch.float32, device=dev)
-    dph = torch.empty((r,), dtype=torch.float32, device=dev)
-    w_n = torch.empty((f, r), dtype=torch.float32, device=dev)
-    w_t = torch.empty((r, f), dtype=torch.float32, device=dev)
+    # the streaming path's scratch: W's norms, dph and W normalised in both
+    # layouts (the resident path keeps all of it in shared memory and leaves
+    # these untouched; the library alone decides the path)
+    wn, dph, w_n, w_t = (torch.empty((k,), dtype=torch.float32, device=dev)
+                         for k in (r, r, f * r, r * f))
     lib = load().lib
     rc = lib.mu_h_solve_columns(
         v.data_ptr(), *v.stride(), w.data_ptr(), h0.data_ptr(), *h0.stride(),
@@ -263,12 +347,31 @@ def mu_h_solve_columns(v: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
         dph.data_ptr(), w_n.data_ptr(), w_t.data_ptr(), f, r, n,
         int(max_iter), float(conv_eps), float(sparsity), float(flr),
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "mu_h_solve_columns")
+    _raise_on(rc, "mu_h_solve_columns", _TILE)
     mu_h_solve_columns.launches += 1
     return h, trips
 
 
 mu_h_solve_columns.launches = 0
+
+_TILE = "a cluster's slice of W with 4 column slots, or a 16-column tile,"
+
+
+def mu_h_solve_columns_shape(f: int, r: int, n: int) -> dict:
+    """K3's launch for N columns on an (F, R) dictionary: whether W's slice
+    stays resident in a persistent cluster's shared memory (else the
+    L2-streaming path of 16-column tiles), the column slots of a cluster (or
+    columns of a tile), shared-memory bytes and threads per block, the
+    clusters (or blocks) launched and the clusters the card holds at once.
+    Needs the built library and the card."""
+    import ctypes
+
+    from se_snmf_nat_tpu_torch.kernels.build import load
+    out = (ctypes.c_int * 6)()
+    rc = load().lib.mu_h_solve_columns_shape(f, r, n, ctypes.addressof(out))
+    _raise_on(rc, "mu_h_solve_columns", _TILE)
+    return dict(zip(("resident", "slots", "smem_bytes", "threads", "clusters",
+                     "resident_clusters"), out))
 
 
 def mu_w_solve_lanes(v: torch.Tensor, w0: torch.Tensor, h: torch.Tensor,
@@ -297,17 +400,31 @@ def mu_w_solve_lanes(v: torch.Tensor, w0: torch.Tensor, h: torch.Tensor,
     act = active.to(torch.int32).contiguous()
     w = torch.empty((b, f, r), dtype=torch.float32, device=dev)
     trips = torch.empty((b,), dtype=torch.int32, device=dev)
-    u_scr = torch.empty((b, f, m), dtype=torch.float32, device=dev)
-    c_scr = torch.empty((b, f, r), dtype=torch.float32, device=dev)
-    lib = load().lib
-    rc = lib.mu_w_solve_lanes(
+    rc = load().lib.mu_w_solve_lanes(
         v.data_ptr(), w0.data_ptr(), h.data_ptr(), act.data_ptr(),
-        w.data_ptr(), trips.data_ptr(), u_scr.data_ptr(), c_scr.data_ptr(),
-        b, f, r, m, int(max_iter), float(conv_eps), float(sparsity),
-        float(flr), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "mu_w_solve_lanes")
+        w.data_ptr(), trips.data_ptr(), b, f, r, m, int(max_iter),
+        float(conv_eps), float(sparsity), float(flr),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "mu_w_solve_lanes", _LANE)
     mu_w_solve_lanes.launches += 1
     return w, trips
 
 
 mu_w_solve_lanes.launches = 0
+
+_LANE = "a lane's slice of W, U and C beside H in both layouts"
+
+
+def w_solve_lanes_shape(b: int, f: int, r: int, m: int) -> dict:
+    """K2's launch for B lanes of (F, R, M): cluster size (blocks a lane),
+    shared-memory bytes and threads per block, clusters the card holds at
+    once and the waves of clusters the B lanes take.  Needs the built
+    library and the card."""
+    import ctypes
+
+    from se_snmf_nat_tpu_torch.kernels.build import load
+    out = (ctypes.c_int * 5)()
+    rc = load().lib.mu_w_solve_lanes_shape(b, f, r, m, ctypes.addressof(out))
+    _raise_on(rc, "mu_w_solve_lanes", _LANE)
+    return dict(zip(("cluster", "smem_bytes", "threads", "resident_clusters",
+                     "waves"), out))

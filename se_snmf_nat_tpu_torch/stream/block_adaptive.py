@@ -23,7 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from se_snmf_nat_tpu.config import PipelineConfig
+from se_snmf_nat_tpu_torch.config import PipelineConfig
+from se_snmf_nat_tpu_torch.device import resolve_device
 from se_snmf_nat_tpu_torch.dsp.stft import (
     analysis_frames, dft_matrices_stacked, overlap_add, synthesis_frames)
 from se_snmf_nat_tpu_torch.dsp.windows import sqrt_hann_periodic
@@ -81,6 +82,7 @@ class BlockStep(nn.Module):
                  dtype=torch.float32, k_block: int = 16, iter_cap: int = 0,
                  refit_iter_cap: int = 0, fixed_iter: bool = False):
         super().__init__()
+        device = resolve_device(device)
         s, sep, ad, blk = cfg.signal, cfg.sep, cfg.adapt, cfg.blk
         if sep.basis_update_n or sep.basis_update_e:
             raise ValueError("block-adaptive plan: supervised configs only")
@@ -250,8 +252,8 @@ def make_block_step(cfg: PipelineConfig, b1_x, b1_d, b2_x=None, b2_d=None,
                     device=None, dtype=torch.float32, k_block: int = 16,
                     iter_cap: int = 0, refit_iter_cap: int = 0,
                     fixed_iter: bool = False) -> BlockStep:
-    """The K-frame block step (``b2_*`` serve only the Mel mode, which is
-    not ported)."""
+    """The K-frame block step, on the card unless ``device`` names another
+    (``b2_*`` serve only the Mel mode, which is not ported)."""
     del b2_x, b2_d
     return BlockStep(cfg, b1_x, b1_d, device, dtype, k_block, iter_cap,
                      refit_iter_cap, fixed_iter)
@@ -266,6 +268,7 @@ class BlockAdaptiveRun(nn.Module):
     def __init__(self, cfg: PipelineConfig, step: BlockStep, device=None,
                  dtype=torch.float32, dft_matmul: bool = False):
         super().__init__()
+        device = resolve_device(device)
         s = cfg.signal
         self.cfg = cfg
         self.step = step
@@ -315,7 +318,9 @@ def make_block_adaptive_run(cfg: PipelineConfig, b1_x, b1_d, b2_x=None,
                             dft_matmul: bool = False,
                             refit_iter_cap: int = 0,
                             fixed_iter: bool = False) -> BlockAdaptiveRun:
-    """The block-adaptive run over lanes (see ``BlockAdaptiveRun``)."""
+    """The block-adaptive run over lanes (see ``BlockAdaptiveRun``), on the
+    card unless ``device`` names another."""
+    device = resolve_device(device)
     step = make_block_step(cfg, b1_x, b1_d, b2_x, b2_d, device, dtype,
                            k_block, iter_cap, refit_iter_cap, fixed_iter)
     return BlockAdaptiveRun(cfg, step, device, dtype, dft_matmul)

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from se_snmf_nat_tpu.config import PipelineConfig
+from se_snmf_nat_tpu_torch.config import PipelineConfig
+from se_snmf_nat_tpu_torch.device import resolve_device
 from se_snmf_nat_tpu_torch.dsp.mel import mel_matrix
 from se_snmf_nat_tpu_torch.dsp.stft import (
     analysis_frames, dft_matrices_stacked, overlap_add, synthesis_frames)
@@ -60,6 +61,7 @@ class FastRun(nn.Module):
         super().__init__()
         if not supports_fast_plan(cfg):
             raise ValueError("config requires the scan plan")
+        device = resolve_device(device)
         if cfg.nmf.beta != 1.0:
             raise NotImplementedError("only the KL solver (beta=1) is ported")
         if cfg.blk.enabled and cfg.blk.blk_gap < 3:
@@ -176,5 +178,6 @@ class FastRun(nn.Module):
 
 def make_fast_run(cfg: PipelineConfig, b1_x, b1_d, b2_x, b2_d, device=None,
                   dtype=torch.float32, dft_matmul: bool = False) -> FastRun:
-    """The non-adaptive run over lanes (see ``FastRun``)."""
+    """The non-adaptive run over lanes (see ``FastRun``), on the card
+    unless ``device`` names another."""
     return FastRun(cfg, b1_x, b1_d, b2_x, b2_d, device, dtype, dft_matmul)

@@ -19,14 +19,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from se_snmf_nat_tpu.config import PipelineConfig, default_config
-from se_snmf_nat_tpu.io.wavio import enhanced_quantize
-from se_snmf_nat_tpu_torch.device import full_f32
+from se_snmf_nat_tpu_torch.config import PipelineConfig, default_config
+from se_snmf_nat_tpu_torch.device import full_f32, resolve_device
 from se_snmf_nat_tpu_torch.dsp.stft import (
     pack_samples_for_upload, stream_frames, stream_frames_torch)
 from se_snmf_nat_tpu_torch.dsp.windows import sqrt_hann_periodic
 from se_snmf_nat_tpu_torch.enhance.state import (
     batch_state, init_engine_state, lane_state)
+from se_snmf_nat_tpu_torch.io.wavio import enhanced_quantize
 from se_snmf_nat_tpu_torch.stream.block_adaptive import (
     make_block_adaptive_run)
 from se_snmf_nat_tpu_torch.stream.fast_pipeline import (
@@ -40,7 +40,8 @@ _EXACT_PLAN = ("the exact per-frame plan (enhance/engine.py), which the "
 
 
 class SnmfEnhancer(nn.Module):
-    """SNMF-NAT enhancer on one device: the block-adaptive plan for
+    """SNMF-NAT enhancer on one device (the card unless ``device`` names
+    another; ``device="cpu"`` for the CPU): the block-adaptive plan for
     ``block_adapt > 0``, else the fast plan where ``supports_fast_plan``
     holds.
 
@@ -64,8 +65,7 @@ class SnmfEnhancer(nn.Module):
             raise NotImplementedError(
                 f"block_adapt=0 on a config with an adaptive dictionary "
                 f"selects {_EXACT_PLAN}")
-        self.device = torch.device(device) if device is not None \
-            else torch.device("cpu")
+        self.device = resolve_device(device)
         self.dtype = dtype
         self.frame_bucket = max(int(frame_bucket), 1)
         self.run = self.fast_run = None

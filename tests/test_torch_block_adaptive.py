@@ -23,7 +23,8 @@ from se_snmf_nat_tpu.enhance.state import init_engine_state as j_init
 from se_snmf_nat_tpu.stream.block_adaptive import (
     make_block_adaptive_run as j_make_run)
 from se_snmf_nat_tpu_torch import fixtures
-from se_snmf_nat_tpu_torch.convert import state_from_jax, state_to_numpy
+from se_snmf_nat_tpu_torch.convert import (
+    config_from_jax, state_from_jax, state_to_numpy)
 from se_snmf_nat_tpu_torch.dsp.stft import stream_frames
 from se_snmf_nat_tpu_torch.enhance.state import EngineState
 from se_snmf_nat_tpu_torch.stream.block_adaptive import (
@@ -82,14 +83,15 @@ def _jax_run(cfg, bx, bd, frames, k_block, dt):
 
 def _port_run(cfg, bx, bd, frames, k_block, dtype, st0):
     opts = PLANS[k_block]
-    run = t_make_run(cfg, bx, bd, bx, bd, None, dtype, k_block,
+    run = t_make_run(config_from_jax(cfg), bx, bd, bx, bd, "cpu", dtype,
+                     k_block,
                      opts["iter_cap"], dft_matmul=opts["dft_matmul"],
                      refit_iter_cap=opts["refit_iter_cap"],
                      fixed_iter=opts["fixed_iter"])
     lanes = len(T_VALID)
     st = state_from_jax(jax.tree.map(
         lambda a: np.broadcast_to(np.asarray(a), (lanes,) + np.shape(a)),
-        st0), dtype=dtype)
+        st0), device="cpu", dtype=dtype)
     with torch.no_grad():
         y, st_out = run(torch.as_tensor(frames, dtype=dtype), st,
                         torch.as_tensor(T_VALID))
@@ -156,7 +158,9 @@ def test_unported_modes_raise():
     bx, bd = fixtures.synthetic_bases(cfg.signal.n_bins, 16, 16)
     mel = cfg.evolve(sep=replace(cfg.sep, b_sep_mode="Mel"))
     with pytest.raises(NotImplementedError):
-        t_make_run(mel, bx, bd, bx, bd, k_block=8)
+        t_make_run(config_from_jax(mel), bx, bd, bx, bd, device="cpu",
+                   k_block=8)
     gap1 = cfg.evolve(blk=replace(cfg.blk, blk_gap=1))
     with pytest.raises(NotImplementedError):
-        t_make_run(gap1, bx, bd, bx, bd, k_block=8)
+        t_make_run(config_from_jax(gap1), bx, bd, bx, bd, device="cpu",
+                   k_block=8)

@@ -22,6 +22,7 @@ from se_snmf_nat_tpu.dsp.windows import sqrt_hann_periodic
 from se_snmf_nat_tpu.stream import fast_pipeline as j_fast
 from se_snmf_nat_tpu.stream.pipeline import SnmfEnhancer as JEnhancer
 from se_snmf_nat_tpu_torch import fixtures
+from se_snmf_nat_tpu_torch.convert import config_from_jax
 from se_snmf_nat_tpu_torch.dsp.stft import stream_frames
 from se_snmf_nat_tpu_torch.kernels import mu
 from se_snmf_nat_tpu_torch.stream.fast_pipeline import (
@@ -75,7 +76,8 @@ def enhancers():
             cfg = CONFIGS[name]()
             bases = _bases(cfg)
             built[name] = (JEnhancer(cfg, *bases, dtype=jnp.float64),
-                           SnmfEnhancer(cfg, *bases, dtype=torch.float64))
+                           SnmfEnhancer(config_from_jax(cfg), *bases,
+                                        device="cpu", dtype=torch.float64))
         return built[name]
     return get
 
@@ -136,7 +138,8 @@ def _fast_runs(name, xs, silent):
         outs.append([np.asarray(run(jnp.asarray(f, dt),
                                     jnp.asarray(win, dt)))[:n]
                      for f, n in zip(frames, n_out)])
-    port = make_fast_run(cfg, *bases, dtype=torch.float32)
+    port = make_fast_run(config_from_jax(cfg), *bases, device="cpu",
+                         dtype=torch.float32)
     with torch.no_grad():
         y = port(torch.as_tensor(frames, dtype=torch.float32),
                  torch.as_tensor(win, dtype=torch.float32)).numpy()
@@ -183,11 +186,13 @@ def test_fast_run_f32_silent_frames_stay_finite(name, xs):
 @pytest.mark.parametrize("name", PRESETS)
 def test_supports_fast_plan_agrees_with_jax(name):
     cfg = preset(name)
-    assert supports_fast_plan(cfg) == j_fast.supports_fast_plan(cfg)
+    assert (supports_fast_plan(config_from_jax(cfg))
+            == j_fast.supports_fast_plan(cfg))
 
 
 def test_fast_plan_presets_are_the_fixed_dictionary_ones():
-    fast = {n for n in PRESETS if supports_fast_plan(preset(n))}
+    fast = {n for n in PRESETS
+            if supports_fast_plan(config_from_jax(preset(n)))}
     assert {"snmf", "exemplar", "snmf_techwin_rt"} <= fast
     assert not fast & {"snmf_nat", "proposed_is16", "semisupervised"}
 
@@ -199,9 +204,12 @@ def test_unported_plans_raise(case, xs, enhancers):
     bases = _bases(cfg)
     with pytest.raises(NotImplementedError):
         if case == "adaptive_config":
-            SnmfEnhancer(_narrow(default_config()), *bases, block_adapt=0)
+            SnmfEnhancer(config_from_jax(_narrow(default_config())), *bases,
+                         device="cpu", block_adapt=0)
         elif case == "q_sequential":
-            SnmfEnhancer(cfg.evolve(blk=replace(cfg.blk, blk_gap=1)), *bases)
+            SnmfEnhancer(config_from_jax(
+                cfg.evolve(blk=replace(cfg.blk, blk_gap=1))), *bases,
+                device="cpu")
         else:
             _, port = enhancers("mmse_q_fixed")
             if case == "carried_state":
@@ -218,6 +226,7 @@ def test_fast_plan_full_width_int16_identical_x64():
     bx, bd = fixtures.structured_bases(cfg.signal.n_bins, 100, 100, seed=0)
     xs = [fixtures.noisy_utterance(54880, seed=i) for i in range(2)]
     ref = JEnhancer(cfg, bx, bd, bx, bd, dtype=jnp.float64)
-    port = SnmfEnhancer(cfg, bx, bd, bx, bd, dtype=torch.float64)
+    port = SnmfEnhancer(config_from_jax(cfg), bx, bd, bx, bd, device="cpu",
+                        dtype=torch.float64)
     for g, w in zip(port.enhance_batch(xs), ref.enhance_batch(xs)):
         np.testing.assert_array_equal(g, w)

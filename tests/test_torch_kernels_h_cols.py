@@ -119,32 +119,55 @@ def test_h_cols_wrapper_takes_plain_version_on_cpu_only():
         mu.mu_h_solve_columns(meta, meta, meta, 5, 0.0, 5.0, 1e-9)
 
 
+def _hold_cols_to_plain(args, h, trips):
+    ref32, tr32 = mu.mu_h_solve_columns_ref(*args)
+    ref64, tr64 = mu.mu_h_solve_columns_ref(
+        *(a.double() for a in args[:3]), *args[3:])
+    torch.cuda.synchronize()
+    same = ((trips == tr32) & (trips == tr64)).cpu().numpy()
+    assert same.mean() > 0.75
+    sel = np.broadcast_to(same[None, :], h.shape)
+    err_k = _rel_big(h.cpu().numpy()[sel], ref64.cpu().numpy()[sel])
+    err_p = _rel_big(ref32.cpu().numpy()[sel], ref64.cpu().numpy()[sel])
+    assert err_k <= max(RTOL, 2.0 * err_p), (err_k, err_p)
+
+
 @pytest.mark.gpu
 def test_cuda_h_cols_kernel_matches_plain_version():
     """K3 against its plain version on the card: a ragged last tile, early
     stops and fixed trips, the broadcast start column, and the frame-major
-    strided input of the fast plan."""
+    strided input of the fast plan; on the resident-W path with more columns
+    than the clusters hold at once (slots are refilled as columns stop) and
+    on the streaming path (R=1000).  Two launches give the same bits, and a
+    column solved among fewer columns gives the bits it has among all."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels are CUDA C++ for sm_90a)")
     from se_snmf_nat_tpu_torch.device import require_cuda
     dev = require_cuda()
-    v, w, h0 = _inputs(6, f=129, r=40, n=37)
     t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
-    v_fm = t(np.ascontiguousarray(v.T)).T           # frame-major (F, N) view
-    for vv in (t(v), v_fm):
-        for max_iter, eps in ((22, 0.0), (100, 1e-3)):
-            args = (vv, t(w), t(h0), max_iter, eps, 5.0, 1e-9)
-            n0 = mu.mu_h_solve_columns.launches
-            h, trips = mu.mu_h_solve_columns(*args)
-            assert mu.mu_h_solve_columns.launches == n0 + 1
-            ref32, tr32 = mu.mu_h_solve_columns_ref(*args)
-            ref64, tr64 = mu.mu_h_solve_columns_ref(
-                vv.double(), t(w).double(), t(h0).double(), *args[3:])
-            torch.cuda.synchronize()
-            same = ((trips == tr32) & (trips == tr64)).cpu().numpy()
-            assert same.mean() > 0.75
-            sel = np.broadcast_to(same[None, :], h.shape)
-            err_k = _rel_big(h.cpu().numpy()[sel], ref64.cpu().numpy()[sel])
-            err_p = _rel_big(ref32.cpu().numpy()[sel],
-                             ref64.cpu().numpy()[sel])
-            assert err_k <= max(RTOL, 2.0 * err_p), (err_k, err_p)
+    for f, r, n, resident in ((129, 40, 37, True), (129, 40, 1700, True),
+                              (513, 200, 300, True), (64, 200, 100, True),
+                              (513, 1000, 40, False)):
+        assert bool(mu.mu_h_solve_columns_shape(f, r, n)["resident"]) \
+            == resident
+        v, w, h0 = _inputs(6, f=f, r=r, n=n)
+        v_fm = t(np.ascontiguousarray(v.T)).T       # frame-major (F, N) view
+        for vv in (t(v), v_fm):
+            for max_iter, eps in ((22, 0.0), (100, 1e-3), (1, 1e-3)):
+                args = (vv, t(w), t(h0), max_iter, eps, 5.0, 1e-9)
+                n0 = mu.mu_h_solve_columns.launches
+                h, trips = mu.mu_h_solve_columns(*args)
+                assert mu.mu_h_solve_columns.launches == n0 + 1
+                _hold_cols_to_plain(args, h, trips)
+                h2, trips2 = mu.mu_h_solve_columns(*args)
+                assert torch.equal(h, h2) and torch.equal(trips, trips2)
+                if resident:
+                    k = n // 3
+                    hk, tk = mu.mu_h_solve_columns(vv[:, :k], *args[1:])
+                    assert torch.equal(h[:, :k], hk)
+                    assert torch.equal(trips[:k], tk)
+        # a start matrix with a column of its own for every column of V
+        h0n = t(np.random.default_rng(7).random((r, n)).astype(np.float32))
+        args = (t(v), t(w), h0n, 30, 1e-3, 5.0, 1e-9)
+        h, trips = mu.mu_h_solve_columns(*args)
+        _hold_cols_to_plain(args, h, trips)

@@ -1,7 +1,9 @@
-"""The port never loads JAX, and its CUDA entry points refuse to run on a
-machine without a card instead of quietly running on the CPU."""
+"""The port never loads JAX nor the JAX package, and its entry points refuse
+to run on a machine without a card (unless the caller says ``device="cpu"``)
+instead of quietly running on the CPU."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -27,12 +29,51 @@ def _run(code: str, cwd=ROOT, env_extra=None):
     "se_snmf_nat_tpu_torch.fixtures",
     "se_snmf_nat_tpu_torch.stream.fast_pipeline",
     "se_snmf_nat_tpu_torch.dsp.mel",
+    "se_snmf_nat_tpu_torch.config",
+    "se_snmf_nat_tpu_torch.io.wavio",
+    "se_snmf_nat_tpu_torch.utils.matlab_compat",
+    "se_snmf_nat_tpu_torch.enhance.state",
+    "se_snmf_nat_tpu_torch.stream.block_adaptive",
 ])
 def test_port_imports_without_jax(module):
-    proc = _run(f"import sys, importlib; importlib.import_module({module!r});"
-                " print('jax' in sys.modules)")
+    """Importing a port module loads neither ``jax`` nor any module of the
+    JAX package."""
+    proc = _run(
+        f"import sys, importlib; importlib.import_module({module!r});"
+        " print(sorted(m for m in sys.modules if m == 'jax'"
+        " or m.startswith('jax.') or m == 'se_snmf_nat_tpu'"
+        " or m.startswith('se_snmf_nat_tpu.')))")
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "False"
+    assert proc.stdout.strip() == "[]"
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+se_snmf_nat_tpu(\s|\.|$)|from\s+se_snmf_nat_tpu(\.\S*)?"
+    r"\s+import|import\s+jax\b|from\s+jax\b)", re.M)
+
+
+def _port_sources():
+    return sorted((ROOT / "se_snmf_nat_tpu_torch").rglob("*.py")) \
+        + [ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_variants.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_source_imports_nothing_of_the_jax_package(path):
+    found = _FORBIDDEN.findall(path.read_text())
+    assert not found, f"{path}: {found}"
+
+
+def test_forbidden_import_pattern_matches():
+    for line in ("import se_snmf_nat_tpu", "from se_snmf_nat_tpu import config",
+                 "    from se_snmf_nat_tpu.config import preset", "import jax",
+                 "import se_snmf_nat_tpu.config as c",
+                 "from jax import numpy"):
+        assert _FORBIDDEN.search(line), line
+    for line in ("import se_snmf_nat_tpu_torch",
+                 "from se_snmf_nat_tpu_torch.config import preset",
+                 "# import se_snmf_nat_tpu"):
+        assert not _FORBIDDEN.search(line), line
 
 
 def _no_cuda() -> None:
@@ -45,6 +86,56 @@ def test_require_cuda_raises_without_a_card():
     from se_snmf_nat_tpu_torch.device import require_cuda
     with pytest.raises(RuntimeError):
         require_cuda()
+
+
+def _default_device_cases():
+    import numpy as np
+
+    from se_snmf_nat_tpu_torch import fixtures
+    from se_snmf_nat_tpu_torch.config import default_config, preset
+    from se_snmf_nat_tpu_torch.convert import bases_to_torch, state_from_jax
+    from se_snmf_nat_tpu_torch.enhance.state import init_engine_state
+    from se_snmf_nat_tpu_torch.headline import build_headline_enhancer
+    from se_snmf_nat_tpu_torch.stream.block_adaptive import (
+        make_block_adaptive_run, make_block_step)
+    from se_snmf_nat_tpu_torch.stream.fast_pipeline import make_fast_run
+    from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    cfg, fixed = default_config(), preset("snmf")
+    bx, bd = fixtures.synthetic_bases(cfg.signal.n_bins, cfg.sep.r_x,
+                                      cfg.sep.r_d)
+    b4 = (bx, bd, bx, bd)
+    cpu_state = init_engine_state(cfg, bd, cfg.signal.n_bins, device="cpu")
+    return {
+        "SnmfEnhancer_block": lambda: SnmfEnhancer(cfg, *b4, block_adapt=8),
+        "SnmfEnhancer_fast": lambda: SnmfEnhancer(fixed, *b4),
+        "make_fast_run": lambda: make_fast_run(fixed, *b4),
+        "make_block_adaptive_run": lambda: make_block_adaptive_run(cfg, *b4),
+        "make_block_step": lambda: make_block_step(cfg, bx, bd),
+        "init_engine_state": lambda: init_engine_state(
+            cfg, bd, cfg.signal.n_bins),
+        "build_headline_enhancer": lambda: build_headline_enhancer(cfg, b4),
+        "bases_to_torch": lambda: bases_to_torch(*b4),
+        "state_from_jax": lambda: state_from_jax(
+            type(cpu_state)(*(np.asarray(f) for f in cpu_state))),
+    }
+
+
+@pytest.mark.parametrize("entry", [
+    "SnmfEnhancer_block", "SnmfEnhancer_fast", "make_fast_run",
+    "make_block_adaptive_run", "make_block_step", "init_engine_state",
+    "build_headline_enhancer", "bases_to_torch", "state_from_jax"])
+def test_entry_point_without_device_raises_without_a_card(entry):
+    """``device=None`` means the card: without one every entry point raises
+    and none carries on on the CPU."""
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _default_device_cases()[entry]()
+
+
+def test_resolve_device_takes_the_cpu_only_when_named():
+    from se_snmf_nat_tpu_torch.device import resolve_device
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")).type == "cpu"
 
 
 def test_kernel_build_raises_without_nvcc():

@@ -17,7 +17,7 @@ from se_snmf_nat_tpu.headline import HEADLINE_PLAN
 from se_snmf_nat_tpu.stream.pipeline import SnmfEnhancer as JEnhancer
 from se_snmf_nat_tpu_torch import fixtures
 from se_snmf_nat_tpu_torch.convert import (
-    bases_to_torch, state_from_jax, state_to_numpy)
+    bases_to_torch, config_from_jax, state_from_jax, state_to_numpy)
 from se_snmf_nat_tpu_torch.headline import build_headline_enhancer
 from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
 
@@ -39,7 +39,8 @@ def setup():
     bx, bd = fixtures.structured_bases(cfg.signal.n_bins, 16, 16, seed=5)
     xs = [fixtures.noisy_utterance(n, seed=i) for i, n in enumerate(LENGTHS)]
     ref = JEnhancer(cfg, bx, bd, bx, bd, dtype=jnp.float64, **PLAN)
-    port = SnmfEnhancer(cfg, bx, bd, bx, bd, dtype=torch.float64, **PLAN)
+    port = SnmfEnhancer(config_from_jax(cfg), bx, bd, bx, bd, device="cpu",
+                        dtype=torch.float64, **PLAN)
     return cfg, bx, bd, xs, ref, port
 
 
@@ -84,7 +85,8 @@ def test_enhance_single_matches_jax_and_carries_state(setup):
 def test_state_round_trip(setup):
     _, _, _, _, ref, _ = setup
     st = jax.tree.map(np.asarray, ref.initial_state())
-    back = state_to_numpy(state_from_jax(st, dtype=torch.float64))
+    back = state_to_numpy(state_from_jax(st, device="cpu",
+                                         dtype=torch.float64))
     for name in back._fields:
         a, b = getattr(back, name), np.asarray(getattr(st, name))
         assert a.dtype.kind == b.dtype.kind, name
@@ -93,10 +95,11 @@ def test_state_round_trip(setup):
 
 def test_bases_to_torch_and_build_headline_enhancer(setup):
     cfg, bx, bd, xs, _, port = setup
-    tb = bases_to_torch(bx, bd, bx, bd, dtype=torch.float64)
+    tb = bases_to_torch(bx, bd, bx, bd, device="cpu", dtype=torch.float64)
     assert all(t.dtype == torch.float64 for t in tb)
     np.testing.assert_array_equal(tb[0].numpy(), bx)
-    enh = build_headline_enhancer(cfg, tb, dtype=torch.float64)
+    enh = build_headline_enhancer(config_from_jax(cfg), tb, device="cpu",
+                                  dtype=torch.float64)
     assert enh.frame_bucket == HEADLINE_PLAN["frame_bucket"]
     assert enh.run.step.k_block == HEADLINE_PLAN["block_adapt"]
     assert enh.run.step.h_eps == 0.0          # fixed-trip H-solves
@@ -108,7 +111,8 @@ def test_bases_to_torch_and_build_headline_enhancer(setup):
 def test_exact_plan_not_ported_yet(setup):
     cfg, bx, bd, *_ = setup
     with pytest.raises(NotImplementedError):
-        SnmfEnhancer(cfg, bx, bd, bx, bd, block_adapt=0)
+        SnmfEnhancer(config_from_jax(cfg), bx, bd, bx, bd, device="cpu",
+                     block_adapt=0)
 
 
 @pytest.mark.slow
@@ -119,7 +123,7 @@ def test_headline_plan_full_width_int16_identical_x64():
     bx, bd = fixtures.structured_bases(cfg.signal.n_bins, 100, 100, seed=0)
     xs = [fixtures.noisy_utterance(54880, seed=i) for i in range(2)]
     ref = JEnhancer(cfg, bx, bd, bx, bd, dtype=jnp.float64, **HEADLINE_PLAN)
-    port = build_headline_enhancer(cfg, (bx, bd, bx, bd),
-                                   dtype=torch.float64)
+    port = build_headline_enhancer(config_from_jax(cfg), (bx, bd, bx, bd),
+                                   device="cpu", dtype=torch.float64)
     for g, w in zip(port.enhance_batch(xs), ref.enhance_batch(xs)):
         np.testing.assert_array_equal(g, w)
