@@ -21,7 +21,10 @@ before printing any result.
    its early stop and with fixed trips, a lane alone against the lane in
    its batch), print their launch shapes and
    ptxas's registers and spills, and two launches on the same inputs must
-   give the same bits.  K3 runs on the fast plan's own spectra, as the
+   give the same bits.  K1 also runs at the exact plan's shape, one
+   column a lane (N=1, cap 100, eps 1e-3, a dictionary of its own a lane,
+   real spectra), with the trip counts compared column by column.  K3 runs
+   on the fast plan's own spectra, as the
    frame-major view it gets there, at R=200, at the exemplar width R=1000
    (the streaming path) and in the Mel mode (F=64), says which path each
    shape took; at the fast plan's own shapes (B=16: N=6,144, cap 25; B=64:
@@ -47,8 +50,22 @@ before printing any result.
    batch times at B=16 and B=64 and a profile of one B=64 batch; then the
    MMSE+Q fixed variant (``default_config()`` with ``adapt_train_n=False``)
    with the same checks and times;
-6. a JSON line of the kernels, the card's name and power limit, and the
-   result line ``{"ok": true, "device": {...}}`` last.
+6. exact plan: ``default_config()`` with ``block_adapt=0`` at full width
+   (F=513, r_x=r_d=100, r_a=50, m_a=100, cap 100, eps 1e-3, MMSE, Q at gap
+   3): ``enhance_batch`` on 16 utterances with the launch counts (K1 and K2
+   once a frame, K3 never), the same output checks and correlation, warm
+   batch times and a profile at B=16 and B=64; ``separate`` on one
+   utterance (the number of sources, ``enhanced`` equal to ``enhance``);
+7. streaming: one ``StreamingSession`` on that enhancer fed 160-sample hops
+   of one utterance, then ``flush``: at ``block_frames`` 1 and 8 the output
+   must be identical to ``enhance`` on the card; with
+   ``use_block_adaptive`` at 88 frames it is the block plan's; the host
+   milliseconds of every push (median, p99, and of the pushes that
+   complete a block) beside the audio of a hop and of a block;
+8. a JSON line of the kernels (``launches``: the sum over the paths'
+   first runs, each counted from zero, also given by path), the card's
+   name and power limit, and the result line ``{"ok": true, "device":
+   {...}}`` last.
 """
 
 from __future__ import annotations
@@ -470,15 +487,11 @@ def check_fast_plan(dev, card):
     k3_launches = per_batch = 0
     for name, cfg in (("snmf", preset("snmf")), ("mmse_q_fixed", mmse_q)):
         enh = SnmfEnhancer(cfg, bx, bd, bx, bd, device=dev)
-        mu.mu_h_solve_lanes.launches = 0
-        mu.mu_w_solve_lanes.launches = 0
-        mu.mu_h_solve_columns.launches = 0
+        reset_launches(mu)
         t0 = time.perf_counter()
         ys = enh.enhance_batch(xs)
         first_s = time.perf_counter() - t0
-        launches = {"K1": mu.mu_h_solve_lanes.launches,
-                    "K2": mu.mu_w_solve_lanes.launches,
-                    "K3": mu.mu_h_solve_columns.launches}
+        launches = read_launches(mu)
         chunks = -(-len(xs) // 32)                 # micro_batch=32
         print(f"fast plan {name}: enhance_batch B={N_UTT} first call "
               f"{first_s:.3f} s, launches {launches}")
@@ -577,6 +590,240 @@ def time_w_on_real_refits(mu, enh, batch, card):
               f"share {bnd / min(k1, k2):.1%} ({card})")
 
 
+def check_h_kernel_one_column(mu, dev, card):
+    """K1 at the exact plan's shape: one column a lane (F=513, R=200, N=1,
+    cap 100, eps 1e-3) at B=16 and B=64, each lane on its own dictionary
+    (the structured bases with the 50 head columns of the noise part
+    rescaled per lane, as a refit leaves them) and one frame of a noisy
+    utterance's spectrum.  Held to the plain version with the trip counts
+    compared column by column, launched twice (bit-identical), timed in
+    turns with the plain version, beside the bound of this run's trips.
+    Returns {B: (max abs error, ms, plain ms, bound ms, bound by)}."""
+    from se_snmf_nat_tpu_torch import fixtures
+    from se_snmf_nat_tpu_torch.config import default_config
+    from se_snmf_nat_tpu_torch.utils.matlab_compat import (
+        matlab_v4_rand_matrix)
+    cfg = default_config()
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
+    bx, bd = fixtures.structured_bases(513, 100, 100, seed=0)
+    h0 = t(matlab_v4_rand_matrix(200, 1, cfg.nmf.random_seed))
+    xs = [fixtures.noisy_utterance(N_SAMPLES, seed=300 + i) for i in range(64)]
+    spectra = fast_plan_spectra(cfg, xs, dev)             # (513, 64 * 384)
+    n_t = spectra.shape[1] // 64
+    cols = lambda same, h: same[:, None, :].expand_as(h)   # noqa: E731
+    out = {}
+    for b in (16, 64):
+        sh = mu.h_solve_lanes_shape(b, 513, 200, 1)
+        print(f"kernel K1 launch B={b} F=513 R=200 N=1: {sh['clusters']} "
+              f"clusters of {sh['cluster']} blocks x {sh['threads']} threads, "
+              f"a group of {sh['group']} column, {sh['smem_bytes']} B shared "
+              f"memory a block, {sh['resident_clusters']} clusters resident "
+              f"at once")
+        head = bd[None, :, :50] * (0.5 + rng.random((b, 1, 50)))
+        w = np.concatenate([np.broadcast_to(bx, (b,) + bx.shape), head,
+                            np.broadcast_to(bd[:, 50:], (b, 513, 50))],
+                           axis=-1)
+        frames = [i * n_t + 40 + 4 * i for i in range(b)]
+        v = spectra[:, frames].T[:, :, None].contiguous()  # (B, 513, 1)
+        args = (v, t(w), h0, 100, 1e-3, 5.0, 1e-9)
+        h, trips = mu.mu_h_solve_lanes(*args)
+        err = compare(f"K1 mu_h_solve_lanes B={b} N=1 cap=100 eps=0.001", h,
+                      trips, mu.mu_h_solve_lanes_ref, args, cols)
+        h2, trips2 = mu.mu_h_solve_lanes(*args)
+        same = torch.equal(h, h2) and torch.equal(trips, trips2)
+        print(f"kernel K1 B={b} N=1: two launches bit-identical {same}; "
+              f"trips per column min {int(trips.min())} max "
+              f"{int(trips.max())}")
+        if not same:
+            raise AssertionError("two K1 launches on the same inputs differ")
+        k1, k2, p1, p2 = in_turns(lambda: mu.mu_h_solve_lanes(*args),
+                                  lambda: mu.mu_h_solve_lanes_ref(*args))
+        flops = 4.0 * 513 * 200 * float(trips.sum().item())
+        bnd, by = bound(flops, 4.0 * (b * 513 + b * 513 * 200 + 200 + b * 200
+                                      + b))
+        out[b] = (err, min(k1, k2), min(p1, p2), bnd, by)
+        print(f"kernel K1 time B={b} F=513 R=200 N=1 cap 100 eps 1e-3 (mean "
+              f"trips {trips.float().mean().item():.2f}): {k1:.3f}, {k2:.3f} "
+              f"ms, plain {p1:.3f}, {p2:.3f} ms (in turns plain, kernel, "
+              f"kernel, plain); bound {bnd:.4f} ms by {by}, share "
+              f"{bnd / out[b][1]:.1%}; GFLOP/s {flops / out[b][1] / 1e6:.1f} "
+              f"({card})")
+    return out
+
+
+def reset_launches(mu):
+    mu.mu_h_solve_lanes.launches = 0
+    mu.mu_w_solve_lanes.launches = 0
+    mu.mu_h_solve_columns.launches = 0
+
+
+def read_launches(mu) -> dict:
+    return {"K1": mu.mu_h_solve_lanes.launches,
+            "K2": mu.mu_w_solve_lanes.launches,
+            "K3": mu.mu_h_solve_columns.launches}
+
+
+def check_exact_plan(mu, dev, card):
+    """Phase 6: the exact per-frame plan at full width
+    (``default_config()`` with ``block_adapt=0``), then ``separate``.
+    Returns (the enhancer, the utterances, the launches of the first
+    ``enhance_batch``)."""
+    from se_snmf_nat_tpu_torch import fixtures
+    from se_snmf_nat_tpu_torch.config import default_config
+    from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    cfg = default_config()
+    s = cfg.signal
+    bx, bd = fixtures.structured_bases(s.n_bins, cfg.sep.r_x, cfg.sep.r_d,
+                                       seed=0)
+    enh = SnmfEnhancer(cfg, bx, bd, bx, bd, device=dev)
+    eng = enh.engine
+    print(f"exact plan: H-solve by the {eng.h_solver}, refit by the "
+          f"{eng.w_solver} (chosen from the config); the refit kernel is "
+          f"launched on every frame: only the device knows which lanes refit")
+    if (eng.h_solver, eng.w_solver) != ("kernel", "kernel") \
+            or enh.run is not None or enh.fast_run is not None:
+        raise AssertionError("default_config() with block_adapt=0 must take "
+                             "the exact plan with both kernels")
+    xs = [fixtures.noisy_utterance(N_SAMPLES, seed=i) for i in range(N_UTT)]
+    n_frames = N_SAMPLES // s.frameshift + cfg.delay + 1
+    n_out = (n_frames - cfg.delay) * s.frameshift
+    reset_launches(mu)
+    t0 = time.perf_counter()
+    ys = enh.enhance_batch(xs)
+    first_s = time.perf_counter() - t0
+    launches = read_launches(mu)
+    print(f"exact plan: enhance_batch B={N_UTT} first call {first_s:.3f} s, "
+          f"{n_frames} frames, launches {launches}")
+    if launches != {"K1": n_frames, "K2": n_frames, "K3": 0}:
+        raise AssertionError(f"the exact plan launches K1 and K2 once a "
+                             f"frame ({n_frames}) and never K3: {launches}")
+    if not all(y.dtype == np.int16 and y.shape == (n_out,) for y in ys):
+        raise AssertionError("outputs are not int16 of the expected length")
+    y_float, st = enh.enhance(xs[0], quantize=False, return_state=True)
+    if not np.all(np.isfinite(y_float)):
+        raise AssertionError("non-finite enhanced waveform")
+    head_moved = (st.b_d_head - enh.initial_state().b_d_head).abs().max()
+    if not head_moved.item() > 0.0:
+        raise AssertionError("no refit changed the noise dictionary")
+    rms_in = float(np.sqrt(np.mean(np.square(xs))))
+    rms_out = float(np.sqrt(np.mean(np.square(np.stack(ys).astype(float)))))
+    if not rms_out < rms_in:
+        raise AssertionError(f"output RMS {rms_out} not below input {rms_in}")
+    cpu = SnmfEnhancer(cfg, bx, bd, bx, bd, device="cpu", dtype=torch.float64)
+    t0 = time.perf_counter()
+    corrs = [float(np.corrcoef(a.astype(float), b.astype(float))[0, 1])
+             for a, b in zip(cpu.enhance_batch(xs[:2]), ys[:2])]
+    print(f"exact plan outputs: {len(ys)} x int16[{n_out}], finite, rms in "
+          f"{rms_in:.1f} -> out {rms_out:.1f}, refits moved the noise head by "
+          f"{head_moved.item():.3e}; card f32 vs CPU f64 (plain versions, "
+          f"{time.perf_counter() - t0:.1f} s) waveform corr "
+          f"{', '.join(f'{c:.6f}' for c in corrs)}")
+    if min(corrs) < 0.99:
+        raise AssertionError(f"card-to-CPU correlation {min(corrs)} < 0.99")
+    audio_s = N_SAMPLES / s.fs
+    for b, reps in ((N_UTT, 3), (64, 2)):
+        batch = [fixtures.noisy_utterance(N_SAMPLES, seed=100 + i)
+                 for i in range(b)]
+        reset_launches(mu)
+        enh.enhance_batch(batch, micro_batch=None)              # warm
+        per_batch = read_launches(mu)
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enh.enhance_batch(batch, micro_batch=None)
+            times.append(time.perf_counter() - t0)
+        best = min(times)
+        print(f"exact plan warm enhance_batch B={b} ({b * audio_s:.2f} audio "
+              f"s): best {best:.4f} s of {[round(x, 4) for x in times]}, "
+              f"{b * audio_s / best:.1f} audio-s/s, {best / n_frames * 1e3:.3f} "
+              f"ms a frame, launches a batch {per_batch} ({card})")
+        wall, k1, k2, other, n_k, busy = profile_batch(
+            enh, batch, ("h_lanes_kernel",), ("w_lanes_kernel",))
+        print(f"exact plan profile B={b}: wall {wall:.4f} s, K1 {k1:.2f} ms, "
+              f"K2 {k2:.2f} ms, other device {other:.2f} ms, kernels launched "
+              f"{n_k}, device busy {busy:.1%} ({card})")
+    reset_launches(mu)
+    src = enh.separate(xs[0])
+    sep_launches = read_launches(mu)
+    n_ev, n_no = len(cfg.sep.event_rank), len(cfg.sep.noise_rank)
+    waves = src["events"] + src["noises"]
+    if len(src["events"]) != n_ev or len(src["noises"]) != n_no:
+        raise AssertionError("separate: wrong number of sources")
+    if not all(w.dtype == np.int16 and w.shape == (n_out,) for w in waves):
+        raise AssertionError("separate: a source is not int16 of the "
+                             "expected length")
+    if not np.array_equal(src["enhanced"], enh.enhance(xs[0])):
+        raise AssertionError("separate: 'enhanced' differs from enhance()")
+    print(f"exact plan separate: {n_ev} event and {n_no} noise waveforms x "
+          f"int16[{n_out}], 'enhanced' equal to enhance(); launches "
+          f"{sep_launches}")
+    return enh, xs, launches
+
+
+def check_streaming(mu, enh, x, card):
+    """Phase 7: ``StreamingSession`` on the card, fed hops of one utterance
+    and flushed.  Exact sessions (``block_frames`` 1 and 8) must give the
+    offline ``enhance`` output of the same enhancer; each configuration is
+    streamed once to warm it, reset, and streamed again with the host clock
+    around every push (a push that completes a block ends in a download).
+    Returns the kernels' launches of the ``block_frames=1`` stream."""
+    from se_snmf_nat_tpu_torch.stream.streaming import StreamingSession
+    cfg = enh.cfg
+    shift = cfg.signal.frameshift
+    want = enh.enhance(x)
+    hop_ms = shift / cfg.signal.fs * 1e3
+    first = None
+    for bf, ba in ((1, False), (8, False), (88, True)):
+        sess = StreamingSession(enh, block_frames=bf, use_block_adaptive=ba)
+        for timed in (False, True):
+            sess.reset()
+            reset_launches(mu)
+            parts, ms = [], []
+            for i in range(0, len(x) - shift + 1, shift):
+                t0 = time.perf_counter()
+                parts.append(sess.push(x[i: i + shift]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            parts.append(sess.flush())
+            flush_ms = (time.perf_counter() - t0) * 1e3
+            launches = read_launches(mu)
+        got = np.concatenate([p for p in parts if len(p)])
+        if got.dtype != np.int16 or got.shape != want.shape:
+            raise AssertionError("streamed output is not int16 of the "
+                                 "offline length")
+        name = (f"block_frames={bf}"
+                + (" use_block_adaptive" if ba else ""))
+        if ba:
+            corr = float(np.corrcoef(got.astype(float),
+                                     want.astype(float))[0, 1])
+            verdict = (f"block plan (an approximation): corr with the exact "
+                       f"offline output {corr:.6f}")
+            if not corr > 0.9:
+                raise AssertionError(f"streaming {name}: corr {corr}")
+        else:
+            if not np.array_equal(got, want):
+                diff = np.abs(got.astype(int) - want.astype(int))
+                raise AssertionError(
+                    f"streaming {name}: output differs from enhance() on "
+                    f"{int((diff > 0).sum())} samples, max {int(diff.max())}")
+            verdict = "output identical to enhance() on the card"
+            if launches["K1"] != len(ms) + cfg.delay + 1 or launches["K3"]:
+                raise AssertionError(f"streaming {name}: launches {launches}")
+        if first is None:
+            first = launches
+        ms = np.asarray(ms)
+        print(f"streaming {name}: {len(ms)} pushes of {shift} samples + "
+              f"flush, {verdict}; ms a push median {np.median(ms):.3f} p99 "
+              f"{np.percentile(ms, 99):.3f} max {ms.max():.3f}, of the "
+              f"{len(ms[bf - 1::bf])} pushes that complete a block median "
+              f"{np.median(ms[bf - 1::bf]):.3f}, flush {flush_ms:.3f} ms, "
+              f"against {hop_ms:.0f} ms of audio a hop and "
+              f"{bf * hop_ms:.0f} ms a block; launches {launches} ({card})")
+    return first
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU path here",
@@ -607,6 +854,7 @@ def main() -> int:
     # from a generator of its own, so one check's draws never move another's
     h_errs, h_times = check_h_kernel(mu, dev, np.random.default_rng(0), card,
                                      lib.log)
+    h_one = check_h_kernel_one_column(mu, dev, card)
     w_errs, w_times = check_w_kernel(mu, dev, np.random.default_rng(0), card,
                                      lib.log)
     c_errs, c_times = check_cols_kernel(mu, dev, card, lib.log)
@@ -618,15 +866,11 @@ def main() -> int:
                                        cfg.sep.r_d, seed=0)
     enh = build_headline_enhancer(cfg, bases_to_torch(bx, bd, bx, bd))
     xs = [fixtures.noisy_utterance(N_SAMPLES, seed=i) for i in range(N_UTT)]
-    mu.mu_h_solve_lanes.launches = 0
-    mu.mu_w_solve_lanes.launches = 0
-    mu.mu_h_solve_columns.launches = 0
+    reset_launches(mu)
     t0 = time.perf_counter()
     ys = enh.enhance_batch(xs)
     first_s = time.perf_counter() - t0
-    launches = {"K1": mu.mu_h_solve_lanes.launches,
-                "K2": mu.mu_w_solve_lanes.launches,
-                "K3": mu.mu_h_solve_columns.launches}
+    launches = read_launches(mu)
     print(f"main path: enhance_batch B={N_UTT} first call {first_s:.3f} s, "
           f"launches {launches}")
     if launches["K1"] == 0 or launches["K2"] == 0 or launches["K3"] != 0:
@@ -689,24 +933,40 @@ def main() -> int:
     # 5. the fast plan
     c_launches, k3_per_batch = check_fast_plan(dev, card)
 
-    # 6. results
-    def entry(name, source, replaces, n_launches, per_batch, err, timing):
+    # 6. the exact plan, 7. streaming
+    exact_enh, exact_xs, exact_launches = check_exact_plan(mu, dev, card)
+    stream_launches = check_streaming(mu, exact_enh, exact_xs[0], card)
+
+    # 8. results: each path's launches were counted from zero around its
+    # own first run (headline, fast plan, exact plan, the hop-by-hop stream)
+    by_path = {"headline": launches, "fast": {"K1": 0, "K2": 0,
+                                              "K3": c_launches},
+               "exact": exact_launches, "streaming": stream_launches}
+
+    def entry(key, name, source, replaces, per_batch, err, timing, **more):
         ms, plain, bnd, by = timing
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": n_launches,
+                "replaces": replaces,
+                "launches": sum(p[key] for p in by_path.values()),
+                "launches_by_path": {k: p[key] for k, p in by_path.items()},
                 "launches_per_batch": per_batch, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-                "library_ms": None}
+                "library_ms": None, **more}
 
+    one = h_one[HEADLINE_BATCH]
     print(json.dumps({"kernels": [
-        entry("mu_h_solve_lanes", "se_snmf_nat_tpu_torch/csrc/mu_h_solve.cu",
-              H_REPLACES, launches["K1"], k1_per_batch,
-              h_errs[HEADLINE_BATCH], h_times[HEADLINE_BATCH]),
-        entry("mu_w_solve_lanes", "se_snmf_nat_tpu_torch/csrc/mu_w_solve.cu",
-              W_REPLACES, launches["K2"], k2_per_batch,
-              w_errs[HEADLINE_BATCH], w_times[HEADLINE_BATCH]),
-        entry("mu_h_solve_columns", "se_snmf_nat_tpu_torch/csrc/mu_h_cols.cu",
-              C_REPLACES, c_launches, k3_per_batch, c_errs[25],
+        entry("K1", "mu_h_solve_lanes",
+              "se_snmf_nat_tpu_torch/csrc/mu_h_solve.cu", H_REPLACES,
+              k1_per_batch, h_errs[HEADLINE_BATCH], h_times[HEADLINE_BATCH],
+              one_column={"max_abs_err": one[0], "ms": one[1],
+                          "plain_ms": one[2], "bound_ms": one[3],
+                          "bound_by": one[4]}),
+        entry("K2", "mu_w_solve_lanes",
+              "se_snmf_nat_tpu_torch/csrc/mu_w_solve.cu", W_REPLACES,
+              k2_per_batch, w_errs[HEADLINE_BATCH], w_times[HEADLINE_BATCH]),
+        entry("K3", "mu_h_solve_columns",
+              "se_snmf_nat_tpu_torch/csrc/mu_h_cols.cu", C_REPLACES,
+              k3_per_batch, c_errs[25],
               c_times[25])]}))      # cap 25: the fast plan's own launch
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -80,9 +80,18 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 384;
+// MU_H_THREADS and MU_H_CLUSTER can be set on the compiler's command line
+// only so that tools/kernel_variants.py can time another build beside this
+// one; a column's bits depend on the cluster size.
+#ifndef MU_H_THREADS
+#define MU_H_THREADS 384
+#endif
+#ifndef MU_H_CLUSTER
+#define MU_H_CLUSTER 8
+#endif
+constexpr int THREADS = MU_H_THREADS;
 constexpr int BR = 12;   // rows of a numerator tile
-constexpr int C = 8;    // blocks of a cluster
+constexpr int C = MU_H_CLUSTER;   // blocks of a cluster
 constexpr int MAX_GROUP = 96;
 constexpr size_t MAX_SMEM = 232448;   // 227 KB: a block's dynamic limit
 

@@ -25,6 +25,7 @@ from torch import nn
 
 from se_snmf_nat_tpu_torch.config import PipelineConfig
 from se_snmf_nat_tpu_torch.device import resolve_device
+from se_snmf_nat_tpu_torch.dsp.mel import mel_matrix
 from se_snmf_nat_tpu_torch.dsp.stft import (
     analysis_frames, dft_matrices_stacked, overlap_add, synthesis_frames)
 from se_snmf_nat_tpu_torch.dsp.windows import sqrt_hann_periodic
@@ -78,21 +79,21 @@ class BlockStep(nn.Module):
     (state, ring_ptr, xm_tilde (B, K, F))``, with ``ls`` the block's 1-based
     frame numbers (host integers, shared by every lane)."""
 
-    def __init__(self, cfg: PipelineConfig, b1_x, b1_d, device=None,
-                 dtype=torch.float32, k_block: int = 16, iter_cap: int = 0,
-                 refit_iter_cap: int = 0, fixed_iter: bool = False):
+    def __init__(self, cfg: PipelineConfig, b1_x, b1_d, b2_x=None, b2_d=None,
+                 device=None, dtype=torch.float32, k_block: int = 16,
+                 iter_cap: int = 0, refit_iter_cap: int = 0,
+                 fixed_iter: bool = False):
         super().__init__()
         device = resolve_device(device)
         s, sep, ad, blk = cfg.signal, cfg.sep, cfg.adapt, cfg.blk
         if sep.basis_update_n or sep.basis_update_e:
             raise ValueError("block-adaptive plan: supervised configs only")
-        if sep.b_sep_mode == "Mel":
-            raise NotImplementedError(
-                "b_sep_mode='Mel': the mel filterbank is not ported yet")
         if cfg.nmf.beta != 1.0:
-            raise NotImplementedError("only the KL solver (beta=1) is ported")
+            raise NotImplementedError(
+                "the block plan's solves run in the KL kernels (beta=1)")
         self.cfg = cfg
         self.k_block = k_block
+        self.mel_mode = sep.b_sep_mode == "Mel"
         r_x, r_a = sep.r_x, ad.r_a
         r = r_x + sep.r_d
 
@@ -101,6 +102,14 @@ class BlockStep(nn.Module):
 
         self.register_buffer("bx", t(b1_x))
         self.register_buffer("bd_tail", t(b1_d)[:, r_a:].contiguous())
+        # Mel mode: the (F_mel, F) filterbank, and the DFT bases that
+        # reconstruct when the mel->DFT conversion is off
+        coupled = self.mel_mode and not sep.mel_conv
+        self.register_buffer("melmat", t(mel_matrix(
+            s.fs, s.f_order, s.fftlength, 1.0, s.fs / 2).T)
+            if self.mel_mode else None)
+        self.register_buffer("bx_dft", t(b2_x) if coupled else None)
+        self.register_buffer("bd_dft", t(b2_d) if coupled else None)
         self.register_buffer("h0_col",
                              t(matlab_v4_rand_matrix(r, 1,
                                                      cfg.nmf.random_seed)))
@@ -131,12 +140,31 @@ class BlockStep(nn.Module):
         n_lanes, k_block, _ = mag_blk.shape
         w_sep = torch.cat([self.bx.expand(n_lanes, -1, -1), state.b_d_head,
                            self.bd_tail.expand(n_lanes, -1, -1)], dim=-1)
+        if self.mel_mode:
+            ym_mel = torch.matmul(mag_blk, self.melmat.T)     # (B, K, F_mel)
+            vn = torch.sqrt(torch.sum(ym_mel * ym_mel, dim=-1, keepdim=True))
+            tn = torch.sqrt(torch.sum(mag_blk * mag_blk, dim=-1,
+                                      keepdim=True))
+            y_sep = (ym_mel / vn + 1e-9) * tn
+        else:
+            y_sep = mag_blk
         a, _ = mu_h_solve_lanes(
-            mag_blk.transpose(-1, -2).contiguous(), w_sep,
+            y_sep.transpose(-1, -2).contiguous(), w_sep,
             self.h0_col.expand(-1, k_block).contiguous(), self.h_iters,
             self.h_eps, self.sparsity, H_SOLVE_FLR)               # (B, R, K)
-        xm = torch.matmul(w_sep[..., :r_x], a[:, :r_x]).transpose(-1, -2)
-        dm = torch.matmul(w_sep[..., r_x:], a[:, r_x:]).transpose(-1, -2)
+        # the l == 1 seed of the noise PSD: the raw DFT spectrum, or the
+        # mel spectrum projected back where the reconstructions are
+        ym_dft_blk = mag_blk
+        if self.mel_mode and not sep.mel_conv:
+            xm = torch.matmul(self.bx_dft, a[:, :r_x]).transpose(-1, -2)
+            dm = torch.matmul(self.bd_dft, a[:, r_x:]).transpose(-1, -2)
+        else:
+            xm = torch.matmul(w_sep[..., :r_x], a[:, :r_x]).transpose(-1, -2)
+            dm = torch.matmul(w_sep[..., r_x:], a[:, r_x:]).transpose(-1, -2)
+            if self.mel_mode:
+                xm = torch.matmul(xm, self.melmat)            # (B, K, F)
+                dm = torch.matmul(dm, self.melmat)
+                ym_dft_blk = torch.matmul(y_sep, self.melmat)
         a_d_mag = torch.sum(a[:, r_x:], dim=1) / r_d             # (B, K)
         a_x_mag = torch.sum(a[:, :r_x], dim=1) / r_x
 
@@ -168,7 +196,7 @@ class BlockStep(nn.Module):
             q, q_control = q_blk[:, k], qc_blk[:, k]
             ad_mag, ax_mag = a_d_mag[:, k], a_x_mag[:, k]
             ok = ok_blk[:, k]
-            lambda_dav = ym if l == 1 else lambda_dav_c
+            lambda_dav = ym_dft_blk[:, k] if l == 1 else lambda_dav_c
             beta = torch.clamp(20.0 * torch.log10(ad_mag / ax_mag) * en.beta,
                                en.beta, en.beta_max)
             lambda_dav = (en.alpha_d * lambda_dav
@@ -233,8 +261,9 @@ class BlockStep(nn.Module):
                 > ax_last[:, None])                                # (B, R_a)
         head = state.b_d_head
         upf = r_up.to(head.dtype)
+        target = torch.matmul(self.melmat, lam_s) if self.mel_mode else lam_s
         w_new, _ = mu_w_solve_lanes(
-            lam_s, head * upf[:, None, :], ad_s * upf[:, :, None], any_refit,
+            target, head * upf[:, None, :], ad_s * upf[:, :, None], any_refit,
             self.w_iters, self.w_eps, self.sparsity, H_SOLVE_FLR)
         merged = torch.where(r_up[:, None, :], w_new, head)
         perm = torch.argsort(r_up.to(torch.int32), dim=-1, stable=True)
@@ -253,10 +282,10 @@ def make_block_step(cfg: PipelineConfig, b1_x, b1_d, b2_x=None, b2_d=None,
                     iter_cap: int = 0, refit_iter_cap: int = 0,
                     fixed_iter: bool = False) -> BlockStep:
     """The K-frame block step, on the card unless ``device`` names another
-    (``b2_*`` serve only the Mel mode, which is not ported)."""
-    del b2_x, b2_d
-    return BlockStep(cfg, b1_x, b1_d, device, dtype, k_block, iter_cap,
-                     refit_iter_cap, fixed_iter)
+    (``b2_*``, the DFT reconstruction bases, serve only the Mel mode without
+    the mel->DFT conversion)."""
+    return BlockStep(cfg, b1_x, b1_d, b2_x, b2_d, device, dtype, k_block,
+                     iter_cap, refit_iter_cap, fixed_iter)
 
 
 class BlockAdaptiveRun(nn.Module):

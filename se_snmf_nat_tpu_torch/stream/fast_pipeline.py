@@ -13,7 +13,9 @@ batch of lanes the plan is
      reference's one solve per lane;
   3. the reconstructions as matrix products;
   4. the block-sparsity statistic Q of all frames in one banded-product
-     pass (causal windows: no frame reads another's result);
+     pass (causal windows: no frame reads another's result; with
+     blk_gap < 3 the recurrence over a frame's centers is one more product,
+     see ``enhance/blk_sparse.py``);
   5. the gain pass: Wiener has no recurrence in its output (the noise-PSD
      recursion feeds only MMSE) and runs over all frames at once; MMSE
      carries ``xm_tilde`` from frame to frame and loops over the frames,
@@ -63,11 +65,8 @@ class FastRun(nn.Module):
             raise ValueError("config requires the scan plan")
         device = resolve_device(device)
         if cfg.nmf.beta != 1.0:
-            raise NotImplementedError("only the KL solver (beta=1) is ported")
-        if cfg.blk.enabled and cfg.blk.blk_gap < 3:
             raise NotImplementedError(
-                "blk_gap < 3 makes Q a recurrence over centers (the "
-                "sequential form), which the port does not have yet")
+                "the fast plan's solve runs in the KL kernel (beta=1)")
         s, sep = cfg.signal, cfg.sep
         self.cfg = cfg
         self.dft_matmul = dft_matmul

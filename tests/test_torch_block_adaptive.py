@@ -153,14 +153,44 @@ def test_block_run_rejects_unaligned_frames():
         _port_run(cfg, bx, bd, frames[:, :20], 8, torch.float64, st0)
 
 
-def test_unported_modes_raise():
+@pytest.mark.parametrize("mode", ["mel_conv", "mel_coupled"])
+def test_block_run_mel_modes_match_jax_x64(mode):
+    """The Mel separation mode, with the mel->DFT conversion and with the
+    coupled DFT dictionary, which used to raise: output and every state
+    field against the JAX run.  (``blk_gap=1``, the other former raise, is
+    held on all three plans in ``tests/test_torch_blk_sparse.py``.)"""
     cfg = _cfg()
-    bx, bd = fixtures.synthetic_bases(cfg.signal.n_bins, 16, 16)
-    mel = cfg.evolve(sep=replace(cfg.sep, b_sep_mode="Mel"))
-    with pytest.raises(NotImplementedError):
-        t_make_run(config_from_jax(mel), bx, bd, bx, bd, device="cpu",
-                   k_block=8)
-    gap1 = cfg.evolve(blk=replace(cfg.blk, blk_gap=1))
-    with pytest.raises(NotImplementedError):
-        t_make_run(config_from_jax(gap1), bx, bd, bx, bd, device="cpu",
-                   k_block=8)
+    cfg = cfg.evolve(sep=replace(cfg.sep, b_sep_mode="Mel",
+                                 mel_conv=mode == "mel_conv"))
+    s = cfg.signal
+    _, _, frames = _inputs(cfg)
+    b1 = fixtures.synthetic_bases(s.f_order, 16, 16, seed=3)
+    b2 = fixtures.synthetic_bases(s.n_bins, 16, 16, seed=3)
+    k_block = 8
+    run = j_make_run(cfg, *b1, *b2, jnp.float64, k_block)
+    st0 = j_init(cfg, b1[1], s.n_bins, jnp.float64, True)
+    win = jnp.asarray(sqrt_hann_periodic(s.framelength), jnp.float64)
+    port = t_make_run(config_from_jax(cfg), *b1, *b2, "cpu", torch.float64,
+                      k_block)
+    lanes = len(T_VALID)
+    st = state_from_jax(jax.tree.map(
+        lambda a: np.broadcast_to(np.asarray(a), (lanes,) + np.shape(a)),
+        st0), device="cpu", dtype=torch.float64)
+    with torch.no_grad():
+        y, st_out = port(torch.as_tensor(frames), st,
+                         torch.as_tensor(T_VALID))
+    st_out = state_to_numpy(st_out)
+    for lane, tv in enumerate(T_VALID):
+        y_ref, st_ref = run(jnp.asarray(frames[lane]), st0, win,
+                            jnp.asarray(tv, jnp.int32))
+        assert np.abs(np.asarray(st_ref.b_d_head)
+                      - b1[1][:, :R_A]).max() > 1e-3
+        assert _rel(y[lane].numpy(), np.asarray(y_ref)) < 1e-9
+        for name in EngineState._fields:
+            got = getattr(st_out, name)[lane]
+            want = np.asarray(getattr(st_ref, name))
+            assert got.shape == want.shape, name
+            if got.dtype.kind in "biu":
+                np.testing.assert_array_equal(got, want, err_msg=name)
+            else:
+                assert _rel(got, want) < 1e-9, name

@@ -199,23 +199,41 @@ def test_fast_plan_presets_are_the_fixed_dictionary_ones():
 
 @pytest.mark.parametrize("case", ["adaptive_config", "carried_state",
                                   "return_state", "q_sequential"])
-def test_unported_plans_raise(case, xs, enhancers):
+def test_plans_beside_the_fast_plan_int16_identical_x64(case, xs, enhancers):
+    """What used to raise beside the fast plan now runs and equals the JAX
+    package: ``block_adapt=0`` on an adaptive config and a state carried in
+    or out of a fixed config take the exact per-frame plan, and
+    ``blk_gap=1`` stays on the fast plan."""
     cfg = CONFIGS["mmse_q_fixed"]()
+    # the engine's rings need r_a <= r_d
+    cfg = cfg.evolve(adapt=replace(cfg.adapt, r_a=8, m_a=12))
     bases = _bases(cfg)
-    with pytest.raises(NotImplementedError):
-        if case == "adaptive_config":
-            SnmfEnhancer(config_from_jax(_narrow(default_config())), *bases,
-                         device="cpu", block_adapt=0)
-        elif case == "q_sequential":
-            SnmfEnhancer(config_from_jax(
-                cfg.evolve(blk=replace(cfg.blk, blk_gap=1))), *bases,
-                device="cpu")
-        else:
-            _, port = enhancers("mmse_q_fixed")
-            if case == "carried_state":
-                port.enhance(xs[0], state=port.initial_state())
-            else:
-                port.enhance(xs[0], return_state=True)
+    if case == "adaptive_config":
+        cfg = cfg.evolve(adapt=replace(cfg.adapt, adapt_train_n=True))
+    elif case == "q_sequential":
+        cfg = cfg.evolve(blk=replace(cfg.blk, blk_gap=1))
+    ref = JEnhancer(cfg, *bases, dtype=jnp.float64)
+    port = SnmfEnhancer(config_from_jax(cfg), *bases, device="cpu",
+                        dtype=torch.float64)
+    assert (port.fast_run is None) == (case == "adaptive_config")
+    assert port.run is None
+    if case in ("adaptive_config", "q_sequential"):
+        np.testing.assert_array_equal(port.enhance(xs[2]),
+                                      ref.enhance(xs[2]))
+        return
+    want, st_ref = ref.enhance(xs[2], return_state=True)
+    got, st = port.enhance(xs[2], return_state=True)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, port.enhance(xs[2]))    # fast plan
+    if case == "return_state":
+        for name in st._fields:
+            np.testing.assert_allclose(
+                getattr(st, name).numpy().astype(float),
+                np.asarray(getattr(st_ref, name)).astype(float), rtol=1e-9,
+                atol=1e-12, err_msg=name)
+    else:
+        np.testing.assert_array_equal(port.enhance(xs[0], state=st),
+                                      ref.enhance(xs[0], state=st_ref))
 
 
 @pytest.mark.slow

@@ -214,3 +214,35 @@ def test_cuda_kernels_match_plain_versions():
         same[:, None, None], shape)
     _hold_to_plain(wk, tk, mu.mu_w_solve_lanes_ref, args, lanes)
     assert int(tk[1]) == 0
+
+
+@pytest.mark.gpu
+def test_cuda_h_lanes_one_column_matches_plain_version():
+    """K1 at the exact plan's shape, one column a lane (F=513 and the Mel
+    F=64, R=200, cap 100 and 15, eps 1e-3) at B=1, 16 and 17: held to the
+    plain version with the trip counts compared, two launches the same
+    bits, and the column alone the same bits as the first of 88 columns of
+    its lane (the three padded columns of its group are inert)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels are CUDA C++ for sm_90a)")
+    from se_snmf_nat_tpu_torch.device import require_cuda
+    dev = require_cuda()
+    t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
+    cols = lambda same, shape: np.broadcast_to(    # noqa: E731
+        same[:, None, :], shape)
+    for b, f, cap in ((1, 513, 100), (16, 513, 100), (17, 513, 15),
+                      (16, 64, 100)):
+        v, w, h0 = _h_inputs(9, b=b, f=f, r=200, n=88)
+        v1, h01 = np.ascontiguousarray(v[:, :, :1]), h0[:, :1].copy()
+        args = (t(v1), t(w), t(h01), cap, 1e-3, 5.0, 1e-9)
+        n0 = mu.mu_h_solve_lanes.launches
+        h, trips = mu.mu_h_solve_lanes(*args)
+        assert mu.mu_h_solve_lanes.launches == n0 + 1
+        assert h.shape == (b, 200, 1) and trips.shape == (b, 1)
+        _hold_to_plain(h, trips, mu.mu_h_solve_lanes_ref, args, cols)
+        h2, trips2 = mu.mu_h_solve_lanes(*args)
+        assert torch.equal(h, h2) and torch.equal(trips, trips2)
+        h88, trips88 = mu.mu_h_solve_lanes(t(v), t(w), t(h0), cap, 1e-3, 5.0,
+                                           1e-9)
+        assert torch.equal(h88[:, :, :1], h)
+        assert torch.equal(trips88[:, :1], trips)

@@ -34,6 +34,10 @@ def _run(code: str, cwd=ROOT, env_extra=None):
     "se_snmf_nat_tpu_torch.utils.matlab_compat",
     "se_snmf_nat_tpu_torch.enhance.state",
     "se_snmf_nat_tpu_torch.stream.block_adaptive",
+    "se_snmf_nat_tpu_torch.enhance.engine",
+    "se_snmf_nat_tpu_torch.enhance.blk_sparse",
+    "se_snmf_nat_tpu_torch.stream.streaming",
+    "se_snmf_nat_tpu_torch.nmf.solver",
 ])
 def test_port_imports_without_jax(module):
     """Importing a port module loads neither ``jax`` nor any module of the
@@ -94,12 +98,14 @@ def _default_device_cases():
     from se_snmf_nat_tpu_torch import fixtures
     from se_snmf_nat_tpu_torch.config import default_config, preset
     from se_snmf_nat_tpu_torch.convert import bases_to_torch, state_from_jax
+    from se_snmf_nat_tpu_torch.enhance.engine import Engine, make_engine
     from se_snmf_nat_tpu_torch.enhance.state import init_engine_state
     from se_snmf_nat_tpu_torch.headline import build_headline_enhancer
     from se_snmf_nat_tpu_torch.stream.block_adaptive import (
         make_block_adaptive_run, make_block_step)
     from se_snmf_nat_tpu_torch.stream.fast_pipeline import make_fast_run
     from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    from se_snmf_nat_tpu_torch.stream.streaming import StreamingSession
     cfg, fixed = default_config(), preset("snmf")
     bx, bd = fixtures.synthetic_bases(cfg.signal.n_bins, cfg.sep.r_x,
                                       cfg.sep.r_d)
@@ -108,6 +114,11 @@ def _default_device_cases():
     return {
         "SnmfEnhancer_block": lambda: SnmfEnhancer(cfg, *b4, block_adapt=8),
         "SnmfEnhancer_fast": lambda: SnmfEnhancer(fixed, *b4),
+        "SnmfEnhancer_exact": lambda: SnmfEnhancer(cfg, *b4),
+        "Engine": lambda: Engine(cfg, *b4),
+        "make_engine": lambda: make_engine(cfg, *b4, emit_sources=True),
+        "StreamingSession": lambda: StreamingSession(
+            SnmfEnhancer(cfg, *b4), block_frames=8),
         "make_fast_run": lambda: make_fast_run(fixed, *b4),
         "make_block_adaptive_run": lambda: make_block_adaptive_run(cfg, *b4),
         "make_block_step": lambda: make_block_step(cfg, bx, bd),
@@ -123,7 +134,8 @@ def _default_device_cases():
 @pytest.mark.parametrize("entry", [
     "SnmfEnhancer_block", "SnmfEnhancer_fast", "make_fast_run",
     "make_block_adaptive_run", "make_block_step", "init_engine_state",
-    "build_headline_enhancer", "bases_to_torch", "state_from_jax"])
+    "build_headline_enhancer", "bases_to_torch", "state_from_jax",
+    "SnmfEnhancer_exact", "Engine", "make_engine", "StreamingSession"])
 def test_entry_point_without_device_raises_without_a_card(entry):
     """``device=None`` means the card: without one every entry point raises
     and none carries on on the CPU."""

@@ -1,6 +1,7 @@
-"""Port parity of the enhancer facade: ``SnmfEnhancer.enhance_batch`` and
-``enhance`` of ``se_snmf_nat_tpu_torch.stream.pipeline`` against the JAX
-package's, with the flags of ``HEADLINE_PLAN`` except a 16-frame block and
+"""Port parity of the enhancer facade: ``SnmfEnhancer.enhance_batch``,
+``enhance`` and ``separate`` of ``se_snmf_nat_tpu_torch.stream.pipeline``
+against the JAX package's, with the flags of ``HEADLINE_PLAN`` except a
+16-frame block, and on the exact per-frame plan (``block_adapt=0``), at
 narrow widths, three utterances of different lengths and micro-batches of
 two.  In float64 the int16 outputs are identical."""
 
@@ -108,11 +109,76 @@ def test_bases_to_torch_and_build_headline_enhancer(setup):
     assert enh.run.step.w_eps > 0.0           # the refit keeps its stop
 
 
-def test_exact_plan_not_ported_yet(setup):
+@pytest.fixture(scope="module")
+def exact(setup):
+    """(reference, port) float64 enhancers on the exact per-frame plan
+    (``block_adapt=0`` on the adaptive config), three events and two noise
+    blocks for ``separate``."""
     cfg, bx, bd, *_ = setup
-    with pytest.raises(NotImplementedError):
-        SnmfEnhancer(config_from_jax(cfg), bx, bd, bx, bd, device="cpu",
-                     block_adapt=0)
+    cfg = cfg.evolve(sep=replace(cfg.sep, event_num=3, event_rank=(1, 5, 9),
+                                 noise_num=2, noise_rank=(1, 9)))
+    ref = JEnhancer(cfg, bx, bd, bx, bd, dtype=jnp.float64, frame_bucket=16)
+    port = SnmfEnhancer(config_from_jax(cfg), bx, bd, bx, bd, device="cpu",
+                        dtype=torch.float64, frame_bucket=16)
+    assert port.run is None and port.fast_run is None
+    return ref, port
+
+
+def test_exact_plan_enhance_int16_identical_x64(setup, exact):
+    """Replaces the raise of the unported exact plan: ``block_adapt=0`` on
+    an adaptive config now runs it."""
+    _, _, bd, xs, _, _ = setup
+    ref, port = exact
+    want, st_ref = ref.enhance(xs[2], return_state=True)
+    got, st = port.enhance(xs[2], return_state=True)
+    assert got.dtype == np.int16
+    np.testing.assert_array_equal(got, want)
+    assert np.abs(np.asarray(st_ref.b_d_head) - bd[:, :8]).max() > 1e-3
+    st_np = state_to_numpy(st)
+    for name in st_np._fields:
+        a, b = getattr(st_np, name), np.asarray(getattr(st_ref, name))
+        np.testing.assert_allclose(a.astype(float), b.astype(float),
+                                   rtol=1e-9, atol=1e-12, err_msg=name)
+
+
+def test_exact_plan_enhance_batch_int16_identical_x64(setup, exact):
+    _, _, _, xs, _, _ = setup
+    ref, port = exact
+    want = ref.enhance_batch(xs, micro_batch=2)
+    got = port.enhance_batch(xs, micro_batch=2)
+    assert len(got) == len(want) == len(xs)
+    for g, w, x in zip(got, want, xs):
+        assert g.dtype == np.int16 and g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+        assert np.sqrt(np.mean(g.astype(float) ** 2)) < np.sqrt(
+            np.mean(x ** 2))
+    # lanes of different lengths in one call equal each utterance alone
+    np.testing.assert_array_equal(got[2], port.enhance(xs[2]))
+
+
+def test_exact_plan_carried_state_int16_identical_x64(setup, exact):
+    _, _, _, xs, _, _ = setup
+    ref, port = exact
+    _, st_ref = ref.enhance(xs[2], return_state=True)
+    _, st = port.enhance(xs[2], return_state=True)
+    want = ref.enhance(xs[0], state=st_ref)
+    got = port.enhance(xs[0], state=st)
+    np.testing.assert_array_equal(got, want)
+    assert np.any(got != port.enhance(xs[0]))     # the state matters
+
+
+def test_exact_plan_separate_int16_identical_x64(setup, exact):
+    _, _, _, xs, _, _ = setup
+    ref, port = exact
+    want = ref.separate(xs[2])
+    got = port.separate(xs[2])
+    assert sorted(got) == ["enhanced", "events", "noises"]
+    assert len(got["events"]) == 3 and len(got["noises"]) == 2
+    np.testing.assert_array_equal(got["enhanced"], want["enhanced"])
+    np.testing.assert_array_equal(got["enhanced"], port.enhance(xs[2]))
+    for key in ("events", "noises"):
+        for g, w in zip(got[key], want[key]):
+            np.testing.assert_array_equal(g, np.asarray(w))
 
 
 @pytest.mark.slow

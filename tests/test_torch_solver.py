@@ -1,10 +1,11 @@
-"""Port parity: the KL solvers of ``se_snmf_nat_tpu_torch.nmf.solver``
+"""Port parity: the solvers of ``se_snmf_nat_tpu_torch.nmf.solver``
 against the JAX package on the same seeded inputs.
 
 Tolerances: float64 within 1e-10 relative to the largest entry (only
 summation order differs, and MU is contractive over a few dozen trips);
 float32 within 1e-5 relative, the rounding of f32 products accumulated
-over the trips.  Early-stop trip counts must agree exactly."""
+over the trips.  Early-stop trip counts must agree exactly.  The betas
+other than KL (IS, ED, 0.5) are held in float64."""
 
 import jax
 import jax.numpy as jnp
@@ -141,13 +142,44 @@ def test_normalize_columns_keeps_zero_columns():
 
 
 @pytest.mark.parametrize("beta", [0.0, 2.0, 0.5])
-def test_non_kl_betas_raise(beta):
+def test_non_kl_betas_h_solve_columns_matches_jax(beta):
+    """IS, ED and a general beta in the per-column H-solve, float64."""
     v, w, h0 = _problem(5)
-    t = lambda a: torch.as_tensor(a)   # noqa: E731
-    with pytest.raises(NotImplementedError):
-        tsol.snmf_h_solve_columns(t(v), t(w), t(h0),
-                                  tsol.SnmfParams(beta=beta))
-    with pytest.raises(NotImplementedError):
-        tsol.snmf_solve(t(v), t(w), t(h0), torch.ones(24, dtype=torch.bool),
-                        torch.ones(24, dtype=torch.bool),
-                        tsol.SnmfParams(beta=beta))
+    p = dict(beta=beta, sparsity=0.5, max_iter=60, conv_eps=1e-3)
+    ref = jsol.snmf_h_solve_columns(jnp.asarray(v), jnp.asarray(w),
+                                    jnp.asarray(h0), jsol.SnmfParams(**p))
+    got = tsol.snmf_h_solve_columns(torch.as_tensor(v), torch.as_tensor(w),
+                                    torch.as_tensor(h0),
+                                    tsol.SnmfParams(**p))
+    assert _rel(got.h, ref.h) < 1e-10
+    assert int(got.iters.max()) == int(ref.iters)
+    assert _rel(got.div, ref.div) < 1e-10
+    assert _rel(got.cost, ref.cost) < 1e-10
+
+
+@pytest.mark.parametrize("update_w,update_h", [(True, True), (False, True),
+                                               (True, False)])
+@pytest.mark.parametrize("beta", [0.0, 2.0, 0.5])
+def test_non_kl_betas_solve_matches_jax(beta, update_w, update_h):
+    """IS, ED and a general beta in ``snmf_solve`` with masks, float64: W
+    and H both updating, H only (the engine's activation solve) and W only
+    (the refit)."""
+    rng = np.random.default_rng(6)
+    v = rng.gamma(0.8, 2.0, (60, 30)) + 0.05
+    w0 = rng.random((60, 8)) + 0.05
+    h0 = rng.random((8, 30)) + 0.05
+    wm = np.array([1, 1, 0, 1, 1, 1, 0, 1], bool)
+    hm = np.array([1, 0, 1, 1, 1, 1, 1, 1], bool)
+    p = dict(beta=beta, sparsity=0.5, max_iter=40, conv_eps=1e-4)
+    ref = jsol.snmf_solve(jnp.asarray(v), jnp.asarray(w0), jnp.asarray(h0),
+                          jnp.asarray(wm), jnp.asarray(hm),
+                          jsol.SnmfParams(**p), update_w=update_w,
+                          update_h=update_h)
+    got = tsol.snmf_solve(
+        torch.as_tensor(v), torch.as_tensor(w0), torch.as_tensor(h0),
+        torch.as_tensor(wm), torch.as_tensor(hm), tsol.SnmfParams(**p),
+        update_w=update_w, update_h=update_h)
+    for name in ("w", "h", "div", "cost"):
+        assert _rel(getattr(got, name), getattr(ref, name)) < 1e-10, name
+    assert int(got.iters) == int(ref.iters)
+    assert int(got.iters) > 1

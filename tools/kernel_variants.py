@@ -1,8 +1,10 @@
-"""Time K2 built with other launch constants, and read where a trip of K2 or
-K3 spends its cycles, on the card, beside the shipped build:
+"""Time K2, or K1 at one column a lane, built with other launch constants,
+and read where a trip of K2 or K3 spends its cycles, on the card, beside the
+shipped build:
 
     python3 tools/kernel_variants.py w                  # K2, every variant
     python3 tools/kernel_variants.py w base threads_384
+    python3 tools/kernel_variants.py h1                 # K1 at N=1
     python3 tools/kernel_variants.py w_clocks
     python3 tools/kernel_variants.py cols_clocks        # K3
 
@@ -11,7 +13,10 @@ toolkit.  ``w`` compiles ``csrc/mu_w_solve.cu`` once a variant with the
 library's flags plus ``-DMU_W_CLUSTER=`` / ``-DMU_W_THREADS=`` (the cluster
 size and block size are constants of a build), loads each shared object from
 ``build/variants/`` and calls the same C entry on the same tensors; one line
-a variant with the card's name and power limit.
+a variant with the card's name and power limit.  ``h1`` does the same for
+``csrc/mu_h_solve.cu`` (``-DMU_H_CLUSTER=`` / ``-DMU_H_THREADS=``) at the
+exact per-frame plan's shape, one column a lane (F=513, R=200, N=1), where
+17 of a block's threads hold a tile and a trip is all latency.
 
 The ``*_clocks`` commands build a copy of the source whose main loop reads
 ``clock64()`` after every block and cluster barrier (thread 0 of the first
@@ -44,6 +49,15 @@ W_VARIANTS = {
     "threads_512": ["-DMU_W_THREADS=512"],
 }
 
+# the knobs of mu_h_solve.cu
+H_VARIANTS = {
+    "base": [],
+    "clusters_of_4": ["-DMU_H_CLUSTER=4"],
+    "clusters_of_2": ["-DMU_H_CLUSTER=2"],
+    "threads_128": ["-DMU_H_THREADS=128"],
+    "clusters_of_4_threads_128": ["-DMU_H_CLUSTER=4", "-DMU_H_THREADS=128"],
+    "clusters_of_2_threads_128": ["-DMU_H_CLUSTER=2", "-DMU_H_THREADS=128"],
+}
 
 OUT_DIR = build.BUILD_DIR / "variants"
 
@@ -217,16 +231,68 @@ def time_w(dev, card, names):
               f"({card})", flush=True)
 
 
+def time_h1(dev, card, names):
+    """K1 at one column a lane (F=513, R=200, N=1), B=16 and B=64: no trip
+    (the entry's own time: W's slice loaded and normalised), 25 fixed
+    trips, and cap 100 with the 1e-3 stop."""
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
+    h0 = t(rng.random((200, 1)))
+    data = {}
+    for b in (16, 64):
+        data[b] = (t(rng.gamma(0.6, 2.0, (b, 513, 1))),
+                   t(rng.random((b, 513, 200)) + 1e-3),
+                   torch.empty((b, 200, 1), dtype=torch.float32, device=dev),
+                   torch.empty((b, 1), dtype=torch.int32, device=dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for name, flags in H_VARIANTS.items():
+        if names and name not in names:
+            continue
+        lib, regs = build_variant(build.CSRC / "mu_h_solve.cu", name, flags)
+        fn = lib.mu_h_solve_lanes
+        fn.argtypes = build.SIGNATURES["mu_h_solve_lanes"]
+        fn.restype = ctypes.c_int
+        shape = (ctypes.c_int * 9)()
+        lib.mu_h_solve_lanes_shape.argtypes = build.SIGNATURES[
+            "mu_h_solve_lanes_shape"]
+        if lib.mu_h_solve_lanes_shape(16, 513, 200, 1,
+                                      ctypes.addressof(shape)) == -1:
+            print(f"K1 N=1 variant {name}: W's slice does not fit in shared "
+                  f"memory", flush=True)
+            continue
+        out = [f"{shape[5]} clusters resident"]
+        for b in (16, 64):
+            v, w, h, trips = data[b]
+            for cap, eps in ((0, 0.0), (25, 0.0), (100, 1e-3)):
+
+                def call():
+                    rc = fn(v.data_ptr(), w.data_ptr(), h0.data_ptr(), 0,
+                            h.data_ptr(), trips.data_ptr(), b, 513, 200, 1,
+                            cap, eps, 5.0, 1e-9, stream)
+                    if rc:
+                        raise RuntimeError(f"{name}: launch error {rc}")
+
+                ms = cuda_ms(call)
+                mean = trips.float().mean().item() if cap else 0.0
+                out.append(f"B={b} cap={cap} eps={eps} (mean trips "
+                           f"{mean:.1f}) {ms:.3f} ms")
+        print(f"K1 N=1 variant {name}: {'; '.join(out)}; {' | '.join(regs)} "
+              f"({card})", flush=True)
+
+
 def main(which: str, names=()) -> int:
     from se_snmf_nat_tpu_torch.device import require_cuda
     dev = require_cuda()
     card = card_line()
     if which == "w":
         time_w(dev, card, names)
+    elif which == "h1":
+        time_h1(dev, card, names)
     elif which in ("w_clocks", "cols_clocks"):
         time_clocks(which.split("_")[0], dev, card)
     else:
-        raise SystemExit("usage: kernel_variants.py w|w_clocks|cols_clocks")
+        raise SystemExit(
+            "usage: kernel_variants.py w|h1|w_clocks|cols_clocks")
     return 0
 
 
