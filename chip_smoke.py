@@ -21,9 +21,12 @@ before printing any result.
    its early stop and with fixed trips, a lane alone against the lane in
    its batch), print their launch shapes and
    ptxas's registers and spills, and two launches on the same inputs must
-   give the same bits.  K1 also runs at the exact plan's shape, one
-   column a lane (N=1, cap 100, eps 1e-3, a dictionary of its own a lane,
-   real spectra), with the trip counts compared column by column.  K3 runs
+   give the same bits.  Both also run at the exact plan's and the fleet's
+   shapes: K1 with one column a lane (N=1, cap 100, eps 1e-3, a dictionary
+   of its own a lane, real spectra) at B=8 (the server's), 16, 64 and 128,
+   with the trip counts compared column by column; K2 at cap 100 and eps
+   1e-3 with two lanes inactive at B=16, 64 and 128 (and at cap 22 at
+   B=128), held, relaunched and timed like the rest.  K3 runs
    on the fast plan's own spectra, as the
    frame-major view it gets there, at R=200, at the exemplar width R=1000
    (the streaming path) and in the Mel mode (F=64), says which path each
@@ -62,14 +65,33 @@ before printing any result.
    ``use_block_adaptive`` at 88 frames it is the block plan's; the host
    milliseconds of every push (median, p99, and of the pushes that
    complete a block) beside the audio of a hop and of a block;
-8. a JSON line of the kernels (``launches``: the sum over the paths'
-   first runs, each counted from zero, also given by path), the card's
-   name and power limit, and the result line ``{"ok": true, "device":
-   {...}}`` last.
+8. fleet: ``MultiStreamSession`` on that enhancer at 16, 64 and 128 lanes,
+   ``block_frames=8``, a different 3.43 s utterance a lane, on the frames
+   wire, the samples wire and the samples wire with ``pipeline_ticks``:
+   the wires' int16 identical on every lane, K1 and K2 launched once a
+   frame whatever the fleet's size, the host milliseconds of every tick
+   (median, p99, max) beside the block's 80 ms of audio with the share of
+   ticks that miss it; lanes 0 and B-1 against solo sessions on the card
+   (at most 2 int16 steps apart, under 1% of the samples different);
+   a lane reset in mid-session against a fresh fleet, bit for bit; one
+   block-adaptive fleet (B=64, 88 frames a tick; its lanes 0 and 63 against
+   solo block-adaptive sessions likewise); ``ShardedFleet`` 2 x 64
+   against two fleets of 64 and beside one fleet of 128; a profile of a
+   few ticks at B=64; and float64 on the card (the plain solvers, chosen
+   from the dtype) against the float64 CPU run on all three plans;
+9. server: ``EnhanceServer`` (8 lanes, ``block_frames=8``) on loopback on
+   the card, three concurrent clients and a fourth on a freed lane, each
+   stream identical to a fleet run of the same samples; every await has a
+   time limit;
+10. a JSON line of the kernels (``launches``: the sum over the paths'
+    first runs, each counted from zero, also given by path), the card's
+    name and power limit, and the result line ``{"ok": true, "device":
+    {...}}`` last.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
 import subprocess
 import sys
@@ -247,11 +269,14 @@ def w_bound(v, r, trips) -> tuple[float, str]:
 
 
 def check_w_kernel(mu, dev, rng, card, log):
-    """K2 at F=513, R=50, M=100, cap 22, ~30% of the columns masked: B=8
-    with lanes 2 and 5 inactive, then the main path's B=16 and B=64 with
-    eps 1e-3 and with fixed trips (eps 0), each launched twice
-    (bit-identical) and with lanes alone (the same bits as in the batch);
-    timed in turns with the plain version."""
+    """K2 at F=513, R=50, M=100, ~30% of the columns masked: B=8 with lanes
+    2 and 5 inactive at cap 22, then B=16, B=64 and B=128 at the headline
+    plan's cap 22 (eps 1e-3, and fixed trips with eps 0) and at the exact
+    plan's and the fleet's cap 100 and eps 1e-3 with lanes 1 and B-2
+    inactive; each launched twice (bit-identical) and with lanes alone (the
+    same bits as in the batch); timed in turns with the plain version.
+    Returns ({B: max abs error}, {B: times}) at cap 22 and eps 1e-3, and
+    {B: (max abs error, ms, plain ms, bound ms, bound by)} at cap 100."""
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
 
     def inputs(b):
@@ -273,8 +298,8 @@ def check_w_kernel(mu, dev, rng, card, log):
     print(f"kernel K2 trips per lane {trips.tolist()}")
     if int(trips[2]) or int(trips[5]):
         raise AssertionError("K2 ran trips on an inactive lane")
-    max_abs, times = {}, {}
-    for b in (16, 64):
+    max_abs, times, at_cap100 = {}, {}, {}
+    for b in (16, 64, 128):
         sh = mu.w_solve_lanes_shape(b, 513, 50, 100)
         print(f"kernel K2 launch B={b} F=513 R=50 M=100: {b} clusters of "
               f"{sh['cluster']} blocks x {sh['threads']} threads, "
@@ -282,39 +307,49 @@ def check_w_kernel(mu, dev, rng, card, log):
               f"{sh['resident_clusters']} clusters resident at once: "
               f"{sh['waves']} waves")
         vb, w0b, hb = inputs(b)
-        actb = torch.ones(b, dtype=torch.bool, device=dev)
-        for eps in (1e-3, 0.0):
-            args = (vb, w0b, hb, actb, 22, eps, 5.0, 1e-9)
+        every = torch.ones(b, dtype=torch.bool, device=dev)
+        but_two = every.clone()
+        but_two[[1, b - 2]] = False
+        for cap, eps, actb in ((22, 1e-3, every), (22, 0.0, every),
+                               (100, 1e-3, but_two)):
+            args = (vb, w0b, hb, actb, cap, eps, 5.0, 1e-9)
             w, trips = mu.mu_w_solve_lanes(*args)
-            err = compare(f"K2 mu_w_solve_lanes B={b} cap=22 eps={eps}", w,
-                          trips, mu.mu_w_solve_lanes_ref, args, lanes)
+            err = compare(f"K2 mu_w_solve_lanes B={b} cap={cap} eps={eps} "
+                          f"({int(actb.sum())} lanes active)", w, trips,
+                          mu.mu_w_solve_lanes_ref, args, lanes)
+            if bool(trips[~actb].any()):
+                raise AssertionError("K2 ran trips on an inactive lane")
             w2, trips2 = mu.mu_w_solve_lanes(*args)
             same = torch.equal(w, w2) and torch.equal(trips, trips2)
             alone = True
             for i in (0, b - 1):
                 wi, ti = mu.mu_w_solve_lanes(
-                    vb[i:i + 1], w0b[i:i + 1], hb[i:i + 1], actb[:1],
+                    vb[i:i + 1], w0b[i:i + 1], hb[i:i + 1], actb[i:i + 1],
                     *args[4:])
                 alone = alone and torch.equal(w[i:i + 1], wi) \
                     and torch.equal(trips[i:i + 1], ti)
-            print(f"kernel K2 B={b} eps={eps}: two launches bit-identical "
-                  f"{same}; lanes 0 and {b - 1} alone equal to the lane in "
-                  f"the batch {alone}")
+            print(f"kernel K2 B={b} cap={cap} eps={eps}: two launches "
+                  f"bit-identical {same}; lanes 0 and {b - 1} alone equal to "
+                  f"the lane in the batch {alone}; trips min "
+                  f"{int(trips[actb].min())} max {int(trips.max())}")
             if not (same and alone):
                 raise AssertionError("K2 launches on the same inputs differ")
             k1, k2, p1, p2 = in_turns(
                 lambda: mu.mu_w_solve_lanes(*args),
                 lambda: mu.mu_w_solve_lanes_ref(*args))
             bnd, by = w_bound(vb, 50, trips)
-            print(f"kernel K2 time B={b} F=513 R=50 M=100 cap 22 eps={eps} "
-                  f"(mean trips {trips.float().mean().item():.2f}): "
+            print(f"kernel K2 time B={b} F=513 R=50 M=100 cap {cap} "
+                  f"eps={eps} (mean trips "
+                  f"{trips.float().mean().item():.2f}): "
                   f"{k1:.3f}, {k2:.3f} ms, plain {p1:.3f}, {p2:.3f} ms (in "
                   f"turns plain, kernel, kernel, plain); bound {bnd:.4f} ms "
                   f"by {by}, share {bnd / min(k1, k2):.1%} ({card})")
-            if eps > 0:
+            if cap == 100:
+                at_cap100[b] = (err, min(k1, k2), min(p1, p2), bnd, by)
+            elif eps > 0:
                 max_abs[b] = err
                 times[b] = (min(k1, k2), min(p1, p2), bnd, by)
-    return max_abs, times
+    return max_abs, times, at_cap100
 
 
 def fast_plan_spectra(cfg, xs, dev):
@@ -440,16 +475,16 @@ def check_cols_kernel(mu, dev, card, log):
     return max_abs, times
 
 
-def profile_batch(enh, batch, *name_groups):
-    """Device time by kernel of one warm ``enhance_batch`` call: (wall s,
-    ms of the kernels whose names contain one of each group's names in
-    turn, other device ms, kernels launched, device busy share)."""
+def profile_call(fn, *name_groups):
+    """Device time by kernel of one call of ``fn``: (wall s, ms of the
+    kernels whose names contain one of each group's names in turn, other
+    device ms, kernels launched, device busy share)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        enh.enhance_batch(batch, micro_batch=None)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     mine = [0.0] * len(name_groups)
@@ -468,6 +503,12 @@ def profile_batch(enh, batch, *name_groups):
         n_kernels += ev.count
     busy = (sum(mine) + other) / (wall * 1e3)
     return (wall, *mine, other, n_kernels, busy)
+
+
+def profile_batch(enh, batch, *name_groups):
+    """``profile_call`` of one warm ``enhance_batch`` call."""
+    return profile_call(lambda: enh.enhance_batch(batch, micro_batch=None),
+                        *name_groups)
 
 
 def check_fast_plan(dev, card):
@@ -591,8 +632,11 @@ def time_w_on_real_refits(mu, enh, batch, card):
 
 
 def check_h_kernel_one_column(mu, dev, card):
-    """K1 at the exact plan's shape: one column a lane (F=513, R=200, N=1,
-    cap 100, eps 1e-3) at B=16 and B=64, each lane on its own dictionary
+    """K1 at the exact plan's and the fleet's shape: one column a lane
+    (F=513, R=200, N=1, cap 100, eps 1e-3) at the server's B=8 and at B=16,
+    B=64 and B=128 (lanes 64 and up take other frames of the 64
+    utterances), each lane on its own
+    dictionary
     (the structured bases with the 50 head columns of the noise part
     rescaled per lane, as a refit leaves them) and one frame of a noisy
     utterance's spectrum.  Held to the plain version with the trip counts
@@ -613,7 +657,7 @@ def check_h_kernel_one_column(mu, dev, card):
     n_t = spectra.shape[1] // 64
     cols = lambda same, h: same[:, None, :].expand_as(h)   # noqa: E731
     out = {}
-    for b in (16, 64):
+    for b in (8, 16, 64, 128):
         sh = mu.h_solve_lanes_shape(b, 513, 200, 1)
         print(f"kernel K1 launch B={b} F=513 R=200 N=1: {sh['clusters']} "
               f"clusters of {sh['cluster']} blocks x {sh['threads']} threads, "
@@ -624,7 +668,8 @@ def check_h_kernel_one_column(mu, dev, card):
         w = np.concatenate([np.broadcast_to(bx, (b,) + bx.shape), head,
                             np.broadcast_to(bd[:, 50:], (b, 513, 50))],
                            axis=-1)
-        frames = [i * n_t + 40 + 4 * i for i in range(b)]
+        frames = [(i % 64) * n_t + 40 + 4 * (i % 64) - 30 * (i // 64)
+                  for i in range(b)]
         v = spectra[:, frames].T[:, :, None].contiguous()  # (B, 513, 1)
         args = (v, t(w), h0, 100, 1e-3, 5.0, 1e-9)
         h, trips = mu.mu_h_solve_lanes(*args)
@@ -824,6 +869,390 @@ def check_streaming(mu, enh, x, card):
     return first
 
 
+FLEET_BLOCK = 8             # frames a fleet tick: 80 ms of audio
+FLEET_ROUNDS = 3            # timed passes over the wires at each fleet size
+FLEET_SIZES = (16, 64, 128)  # lanes; the sharded fleet splits the last in two
+FLEET_BA_BLOCK = 88         # frames a tick of the block-adaptive fleet
+
+
+def push_blocks(fleet, xs, block):
+    """Feed a fleet the lanes' samples xs (B, n) one block of hops a push.
+    Returns (the pushes' outputs, host ms of every push that completed a
+    block)."""
+    step = block * fleet.enh.cfg.signal.frameshift
+    parts, ms = [], []
+    for i in range(0, xs.shape[1], step):
+        chunk = xs[:, i: i + step]
+        t0 = time.perf_counter()
+        parts.append(fleet.push(chunk))
+        if chunk.shape[1] == step:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return parts, np.asarray(ms)
+
+
+def drive_fleet(fleet, xs, block, pipelined=False):
+    """``push_blocks``, then ``drain`` (pipelined fleets) and ``flush``.
+    Returns (int16 output (B, m), the ticks' host ms, flush ms)."""
+    parts, ms = push_blocks(fleet, xs, block)
+    if pipelined:
+        parts.append(np.stack(fleet.drain()))
+    t0 = time.perf_counter()
+    parts.append(fleet.flush())
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    return (np.concatenate([p for p in parts if p.shape[1]], axis=1), ms,
+            flush_ms)
+
+
+def tick_line(ms, deadline_ms) -> str:
+    """Median, p99 and max of the ticks' host ms, and the share of all of
+    them (the first included) that took longer than the block's audio."""
+    return (f"ms a tick median {np.median(ms):.3f} p99 "
+            f"{np.percentile(ms, 99):.3f} max {ms.max():.3f} over "
+            f"{len(ms)} ticks (the fleet's first {ms[0]:.3f}), against "
+            f"{deadline_ms:.0f} "
+            f"ms of audio a tick: {float((ms > deadline_ms).mean()):.4f} of "
+            f"the ticks miss it")
+
+
+def int16_gap(a, b) -> tuple[int, int, float]:
+    """(samples that differ, largest difference, correlation)."""
+    d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    return (int((d > 0).sum()), int(d.max(initial=0)),
+            float(np.corrcoef(a.astype(float), b.astype(float))[0, 1]))
+
+
+SOLO_MAX_DIFF = 2           # int16 steps between a fleet lane and a solo session
+SOLO_MAX_SHARE = 0.01       # of the samples may differ at all
+
+
+def hold_to_solo(name, y, solo):
+    """A fleet lane's int16 output against a solo session's on the same
+    samples: at most ``SOLO_MAX_DIFF`` apart anywhere, and different on
+    under ``SOLO_MAX_SHARE`` of the samples.  The correlation is printed."""
+    n, mx, corr = int16_gap(y, solo)
+    print(f"{name} against a solo session on the card: {n} of {len(solo)} "
+          f"int16 samples differ, max difference {mx}, corr {corr:.6f}")
+    if y.shape != solo.shape or mx > SOLO_MAX_DIFF \
+            or n >= SOLO_MAX_SHARE * len(solo):
+        raise AssertionError(f"{name}: {n} samples differ from its solo "
+                             f"session's, max {mx}")
+
+
+def check_fleet(mu, enh, card):
+    """Phase 8: the serving fleet on the exact-plan enhancer at full width,
+    at the three ``FLEET_SIZES``.  Returns the kernels' launches of the
+    first fleet run (the smallest fleet, samples wire), counted from
+    zero."""
+    from se_snmf_nat_tpu_torch import fixtures
+    from se_snmf_nat_tpu_torch.stream.serving import (
+        MultiStreamSession, ShardedFleet)
+    from se_snmf_nat_tpu_torch.stream.streaming import StreamingSession
+    cfg = enh.cfg
+    shift = cfg.signal.frameshift
+    block = FLEET_BLOCK
+    deadline = block * shift / cfg.signal.fs * 1e3
+    sizes, n_samples = FLEET_SIZES, N_SAMPLES
+    n_frames = n_samples // shift + cfg.delay + 1
+    n_out = (n_frames - cfg.delay) * shift
+    small, mid, big = sizes
+    xs = np.stack([fixtures.noisy_utterance(n_samples, seed=400 + i)
+                   for i in range(big)])
+    wires = (("frames", dict(wire="frames")),
+             ("samples", dict(wire="samples")),
+             ("samples+pipeline_ticks", dict(wire="samples",
+                                             pipeline_ticks=True)))
+    first = None
+    outs = {}                          # B -> the samples wire's output
+    tick_ms = {}
+    for b in sizes:
+        # the wires in turns, FLEET_ROUNDS times over: a one-card machine
+        # shares its host's cores, and a neighbour's second of load would
+        # otherwise land on one wire's row.  The first round is checked.
+        got, rounds = {}, {name: [] for name, _ in wires}
+        for rnd in range(FLEET_ROUNDS):
+            for name, kw in wires:
+                fleet = MultiStreamSession(enh, b, block_frames=block, **kw)
+                reset_launches(mu)
+                y, ms, flush_ms = drive_fleet(
+                    fleet, xs[:b], block, pipelined="pipeline_ticks" in kw)
+                launches = read_launches(mu)
+                rounds[name].append((ms, flush_ms))
+                if rnd:
+                    continue
+                if first is None and name == "samples":
+                    first = launches
+                if y.dtype != np.int16 or y.shape != (b, n_out):
+                    raise AssertionError(f"fleet B={b} {name}: output "
+                                         f"{y.dtype}{y.shape}")
+                if launches != {"K1": n_frames, "K2": n_frames, "K3": 0}:
+                    raise AssertionError(
+                        f"fleet B={b} {name}: K1 and K2 are launched once a "
+                        f"frame ({n_frames}) whatever B, K3 never: "
+                        f"{launches}")
+                got[name] = y
+        for name, _ in wires:
+            ms = np.concatenate([m for m, _ in rounds[name]])
+            tick_ms[(b, name)] = ms
+            print(f"fleet B={b} block_frames={block} wire={name}: "
+                  f"{tick_line(ms, deadline)}; medians by round "
+                  f"{', '.join(f'{np.median(m):.3f}' for m, _ in rounds[name])}"
+                  f"; flush "
+                  f"{', '.join(f'{f:.3f}' for _, f in rounds[name])} ms; "
+                  f"launches a run K1 {n_frames} K2 {n_frames} K3 0 ({card})")
+        for name in ("frames", "samples+pipeline_ticks"):
+            if not np.array_equal(got[name], got["samples"]):
+                n, mx, _ = int16_gap(got[name], got["samples"])
+                raise AssertionError(
+                    f"fleet B={b}: wire {name} differs from the samples "
+                    f"wire on {n} samples, max {mx}")
+        print(f"fleet B={b}: frames wire, samples wire and pipelined ticks "
+              f"(after drain) int16 identical on all {b} lanes")
+        outs[b] = got["samples"]
+    # lanes against solo sessions on the card: B=1 products may take other
+    # cuBLAS kernels than a fleet's, so identity is not asserted, but the
+    # gap is (SOLO_MAX_DIFF, SOLO_MAX_SHARE): this is the one check that
+    # crosses fleet sizes
+    solo = {}
+    for lane in sorted({0} | {b - 1 for b in sizes}):
+        sess = StreamingSession(enh, block_frames=block)
+        solo[lane] = np.concatenate([sess.push(xs[lane]), sess.flush()])
+    for b in sizes:
+        for lane in (0, b - 1):
+            hold_to_solo(f"fleet B={b} lane {lane}", outs[b][lane],
+                         solo[lane])
+    # a lane reset at a block boundary for a new tenant
+    b, lane = small, min(5, small - 1)
+    n_blocks = n_samples // (block * shift)
+    cut_blocks = n_blocks * 4 // 7
+    more_blocks = n_blocks - cut_blocks
+    cut, more = cut_blocks * block * shift, more_blocks * block * shift
+    new = fixtures.noisy_utterance(n_samples, seed=900)
+    fleet = MultiStreamSession(enh, b, block_frames=block, wire="samples")
+    before = fleet.push_per_lane(xs[:b, :cut])
+    fleet.reset_lanes([lane])
+    tail = xs[:b, cut: cut + more].copy()
+    tail[lane] = new[:more]
+    after = fleet.push_per_lane(tail)
+    fresh = MultiStreamSession(enh, b, block_frames=block, wire="samples")
+    head = xs[:b, :more].copy()
+    head[lane] = new[:more]
+    want_new = fresh.push_per_lane(head)[lane]
+    if not np.array_equal(after[lane], want_new):
+        n, mx, _ = int16_gap(after[lane], want_new)
+        raise AssertionError(f"reset_lanes: the new tenant's lane differs "
+                             f"from a fresh fleet's on {n} samples, max {mx}")
+    for i in range(b):
+        if i == lane:
+            continue
+        y = np.concatenate([before[i], after[i]])
+        if not np.array_equal(y, outs[b][i, : len(y)]):
+            raise AssertionError(f"reset_lanes: lane {i} was disturbed")
+    print(f"fleet B={b} reset_lanes([{lane}]) after {cut_blocks} blocks: the "
+          f"new tenant's {len(want_new)} samples bit-identical to lane "
+          f"{lane} of a fresh fleet, the other {b - 1} lanes bit-identical "
+          f"to the undisturbed run")
+    # one block-adaptive fleet
+    b, k = mid, FLEET_BA_BLOCK
+    fleet = MultiStreamSession(enh, b, block_frames=k,
+                               use_block_adaptive=True)
+    reset_launches(mu)
+    parts, ms = push_blocks(fleet, xs[:b], k)
+    launches = read_launches(mu)      # before the partial tail's exact loop
+    parts.append(fleet.flush())
+    y = np.concatenate([p for p in parts if p.shape[1]], axis=1)
+    corrs = [int16_gap(y[i], outs[b][i])[2] for i in range(b)]
+    print(f"fleet B={b} block_frames={k} use_block_adaptive (frames wire): "
+          f"{len(ms)} full blocks, launches {launches} (once a block), ms a "
+          f"tick {', '.join(f'{m:.3f}' for m in ms)} against "
+          f"{k * shift / cfg.signal.fs * 1e3:.0f} ms of audio; corr with the "
+          f"exact fleet min {min(corrs):.6f} median "
+          f"{float(np.median(corrs)):.6f} ({card})")
+    if launches != {"K1": len(ms), "K2": len(ms), "K3": 0} \
+            or y.shape != (b, n_out) or not min(corrs) > 0.9:
+        raise AssertionError(f"block-adaptive fleet: launches {launches}, "
+                             f"output {y.shape}, min corr {min(corrs)}")
+    for lane in (0, b - 1):
+        sess = StreamingSession(enh, block_frames=k, use_block_adaptive=True)
+        hold_to_solo(f"block-adaptive fleet B={b} lane {lane}", y[lane],
+                     np.concatenate([sess.push(xs[lane]), sess.flush()]))
+    # a sharded fleet of two halves beside one fleet of the whole, in turns
+    sh_ms, one_ms = [], []
+    for rnd in range(FLEET_ROUNDS):
+        sharded = ShardedFleet(enh, big, sub_fleets=2, block_frames=block,
+                               wire="samples")
+        y, ms, _ = drive_fleet(sharded, xs, block)
+        sh_ms.append(ms)
+        if rnd == 0:
+            upper, _, _ = drive_fleet(
+                MultiStreamSession(enh, mid, block_frames=block,
+                                   wire="samples"), xs[mid:], block)
+            if not (np.array_equal(y[:mid], outs[mid])
+                    and np.array_equal(y[mid:], upper)):
+                raise AssertionError(f"ShardedFleet 2 x {mid} differs from "
+                                     f"two fleets of {mid}")
+        one_ms.append(drive_fleet(
+            MultiStreamSession(enh, big, block_frames=block, wire="samples"),
+            xs, block)[1])
+    print(f"ShardedFleet 2 x {mid}, samples wire: int16 identical lane by "
+          f"lane to two fleets of {mid}; "
+          f"{tick_line(np.concatenate(sh_ms), deadline)}; medians by round "
+          f"{', '.join(f'{np.median(m):.3f}' for m in sh_ms)}; one fleet of "
+          f"{big} in turns with it: "
+          f"{tick_line(np.concatenate(one_ms), deadline)}; medians by round "
+          f"{', '.join(f'{np.median(m):.3f}' for m in one_ms)} ({card})")
+    # a profile of a few ticks at the middle size
+    b, n_ticks = mid, 4
+    fleet = MultiStreamSession(enh, b, block_frames=block, wire="samples")
+    step = block * shift
+    fleet.push(xs[:b, : 2 * step])
+
+    def ticks():
+        for i in range(2, 2 + n_ticks):
+            fleet.push(xs[:b, i * step: (i + 1) * step])
+
+    wall, k1, k2, other, n_k, busy = profile_call(
+        ticks, ("h_lanes_kernel",), ("w_lanes_kernel",))
+    print(f"fleet profile B={b} wire=samples, {n_ticks} ticks of {block} "
+          f"frames: wall {wall * 1e3 / n_ticks:.3f} ms a tick, K1 "
+          f"{k1 / n_ticks:.3f} ms, K2 {k2 / n_ticks:.3f} ms, other device "
+          f"{other / n_ticks:.3f} ms a tick, kernels launched "
+          f"{n_k / n_ticks:.0f} a tick, device busy {busy:.1%} ({card})")
+    return first
+
+
+def check_float64_on_card(mu, dev, card):
+    """Phase 8, float64: ``enhance`` of one 1 s utterance at full width on
+    the exact plan, the block plan and the fast plan with
+    ``dtype=torch.float64`` on the card (the plain solvers, chosen from the
+    dtype; no kernel is launched) against the same enhancer on the CPU:
+    within 1e-9 relative, int16 identical."""
+    from se_snmf_nat_tpu_torch import fixtures
+    from se_snmf_nat_tpu_torch.config import default_config, preset
+    from se_snmf_nat_tpu_torch.headline import HEADLINE_PLAN
+    from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    bx, bd = fixtures.structured_bases(513, 100, 100, seed=0)
+    x = fixtures.noisy_utterance(16000, seed=77)
+    for name, cfg, kw in (("exact", default_config(), {}),
+                          ("block", default_config(), HEADLINE_PLAN),
+                          ("fast", preset("snmf"), {})):
+        on_card = SnmfEnhancer(cfg, bx, bd, bx, bd, device=dev,
+                               dtype=torch.float64, **kw)
+        on_cpu = SnmfEnhancer(cfg, bx, bd, bx, bd, device="cpu",
+                              dtype=torch.float64, **kw)
+        solvers = {"exact": lambda e: (e.engine.h_solver, e.engine.w_solver),
+                   "block": lambda e: (e.run.step.h_solver,
+                                       e.run.step.w_solver),
+                   "fast": lambda e: (e.fast_run.h_solver,)}[name](on_card)
+        reset_launches(mu)
+        t0 = time.perf_counter()
+        got = on_card.enhance(x, quantize=False)
+        card_s = time.perf_counter() - t0
+        launches = read_launches(mu)
+        t0 = time.perf_counter()
+        want = on_cpu.enhance(x, quantize=False)
+        cpu_s = time.perf_counter() - t0
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        same = np.array_equal(on_card.enhance(x), on_cpu.enhance(x))
+        print(f"float64 on the card, {name} plan (solvers "
+              f"{'/'.join(solvers)}): 1.00 s utterance in {card_s:.2f} s "
+              f"(CPU {cpu_s:.2f} s), max relative difference to the CPU "
+              f"{rel:.3e}, int16 identical {same}, launches {launches} "
+              f"({card})")
+        if set(solvers) != {"plain"} or any(launches.values()) \
+                or not rel <= 1e-9 or not same:
+            raise AssertionError(f"float64 on the card, {name} plan")
+
+
+SERVER_TIMEOUT = 120.0      # seconds, on every await of phase 9
+SERVER_SAMPLES = 24000 + 57  # a client's stream: 150 hops and a partial one
+
+
+def check_server(mu, enh, card):
+    """Phase 9: ``EnhanceServer`` (8 lanes, ``block_frames=8``, the default
+    samples wire) on loopback on the card: three concurrent clients, then a
+    fourth on a freed lane; each gets ``(hops + 1) * 160`` int16 samples,
+    those of a fleet run of the same samples.  Returns the kernels'
+    launches over the server's life, counted from zero."""
+    from se_snmf_nat_tpu_torch import fixtures
+    from se_snmf_nat_tpu_torch.runtime.server import (
+        EnhanceServer, enhance_over_socket)
+    from se_snmf_nat_tpu_torch.stream.serving import MultiStreamSession
+    shift = enh.cfg.signal.frameshift
+    n_lanes, n = 8, SERVER_SAMPLES
+    xs = [fixtures.noisy_utterance(n, seed=700 + i) for i in range(4)]
+
+    def fleet_run(lanes):
+        smp = np.zeros((n_lanes, n))
+        for lane, x in lanes.items():
+            smp[lane] = x
+        fleet = MultiStreamSession(enh, n_lanes, block_frames=FLEET_BLOCK,
+                                   wire="samples")
+        return np.concatenate([fleet.push(smp), fleet.flush()], axis=1)
+
+    want = fleet_run({0: xs[0], 1: xs[1], 2: xs[2]})
+    want4 = fleet_run({0: xs[3]})[0]
+
+    async def within(coro):
+        return await asyncio.wait_for(coro, timeout=SERVER_TIMEOUT)
+
+    async def go():
+        srv = await within(EnhanceServer(
+            enh, n_lanes=n_lanes, block_frames=FLEET_BLOCK).start())
+        try:
+            t0 = time.perf_counter()
+            three = await within(asyncio.gather(*[
+                enhance_over_socket("127.0.0.1", srv.port, x, chunk=4000)
+                for x in xs[:3]]))
+            three_s = time.perf_counter() - t0
+            for _ in range(int(SERVER_TIMEOUT / 0.01)):
+                if all(ln.state == "free" for ln in srv.lanes):
+                    break
+                await asyncio.sleep(0.01)
+            else:
+                raise AssertionError("server: the lanes did not free")
+            fourth = await within(
+                enhance_over_socket("127.0.0.1", srv.port, xs[3]))
+            return three, fourth, three_s, srv.ticks
+        finally:
+            t0 = time.perf_counter()
+            await within(srv.stop())
+            print(f"server: stop() returned in "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    reset_launches(mu)
+    three, fourth, three_s, ticks = asyncio.run(
+        asyncio.wait_for(go(), timeout=4 * SERVER_TIMEOUT))
+    launches = read_launches(mu)
+    n_out = (n // shift + 1) * shift
+    for i, y in enumerate(three + [fourth]):
+        if y.dtype != np.int16 or y.shape != (n_out,):
+            raise AssertionError(f"server client {i}: {y.dtype}{y.shape}, "
+                                 f"expected int16[{n_out}]")
+    # a client's lane is whichever was free when it connected; a lane's
+    # stream depends on its own samples only
+    for i, y in enumerate(three):
+        if not np.array_equal(y, want[i]):
+            n_d, mx, _ = int16_gap(y, want[i])
+            raise AssertionError(f"server client {i} differs from the fleet "
+                                 f"run on {n_d} samples, max {mx}")
+    if not np.array_equal(fourth, want4):
+        n_d, mx, _ = int16_gap(fourth, want4)
+        raise AssertionError(f"server: the fourth client (a freed lane) "
+                             f"differs from the fleet run on {n_d} samples, "
+                             f"max {mx}")
+    if launches["K1"] == 0 or launches["K1"] != launches["K2"] \
+            or launches["K3"] or not ticks - FLEET_BLOCK < launches["K1"] \
+            <= ticks:
+        raise AssertionError(f"server: {ticks} hop ticks, launches "
+                             f"{launches}")
+    print(f"server: {n_lanes} lanes, block_frames={FLEET_BLOCK}, samples "
+          f"wire: three concurrent clients of {n / 16000:.2f} s served in "
+          f"{three_s:.3f} s, then a fourth on a freed lane; each "
+          f"int16[{n_out}], identical to a fleet run of the same samples; "
+          f"{ticks} hop ticks, launches {launches} ({card})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU path here",
@@ -855,8 +1284,8 @@ def main() -> int:
     h_errs, h_times = check_h_kernel(mu, dev, np.random.default_rng(0), card,
                                      lib.log)
     h_one = check_h_kernel_one_column(mu, dev, card)
-    w_errs, w_times = check_w_kernel(mu, dev, np.random.default_rng(0), card,
-                                     lib.log)
+    w_errs, w_times, w_cap100 = check_w_kernel(
+        mu, dev, np.random.default_rng(0), card, lib.log)
     c_errs, c_times = check_cols_kernel(mu, dev, card, lib.log)
     print(NO_LIBRARY)
 
@@ -937,11 +1366,18 @@ def main() -> int:
     exact_enh, exact_xs, exact_launches = check_exact_plan(mu, dev, card)
     stream_launches = check_streaming(mu, exact_enh, exact_xs[0], card)
 
-    # 8. results: each path's launches were counted from zero around its
-    # own first run (headline, fast plan, exact plan, the hop-by-hop stream)
+    # 8. the fleet and float64 on the card, 9. the server
+    fleet_launches = check_fleet(mu, exact_enh, card)
+    check_float64_on_card(mu, dev, card)
+    server_launches = check_server(mu, exact_enh, card)
+
+    # 10. results: each path's launches were counted from zero around its
+    # own first run (headline, fast plan, exact plan, the hop-by-hop stream,
+    # the first fleet, the server's life)
     by_path = {"headline": launches, "fast": {"K1": 0, "K2": 0,
                                               "K3": c_launches},
-               "exact": exact_launches, "streaming": stream_launches}
+               "exact": exact_launches, "streaming": stream_launches,
+               "fleet": fleet_launches, "server": server_launches}
 
     def entry(key, name, source, replaces, per_batch, err, timing, **more):
         ms, plain, bnd, by = timing
@@ -953,17 +1389,22 @@ def main() -> int:
                 "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
                 "library_ms": None, **more}
 
-    one = h_one[HEADLINE_BATCH]
+    def sub(found):
+        return dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by"), found))
+
     print(json.dumps({"kernels": [
         entry("K1", "mu_h_solve_lanes",
               "se_snmf_nat_tpu_torch/csrc/mu_h_solve.cu", H_REPLACES,
               k1_per_batch, h_errs[HEADLINE_BATCH], h_times[HEADLINE_BATCH],
-              one_column={"max_abs_err": one[0], "ms": one[1],
-                          "plain_ms": one[2], "bound_ms": one[3],
-                          "bound_by": one[4]}),
+              one_column=sub(h_one[HEADLINE_BATCH]),
+              one_column_b8=sub(h_one[8]),
+              one_column_b128=sub(h_one[128])),
         entry("K2", "mu_w_solve_lanes",
               "se_snmf_nat_tpu_torch/csrc/mu_w_solve.cu", W_REPLACES,
-              k2_per_batch, w_errs[HEADLINE_BATCH], w_times[HEADLINE_BATCH]),
+              k2_per_batch, w_errs[HEADLINE_BATCH], w_times[HEADLINE_BATCH],
+              cap100=sub(w_cap100[HEADLINE_BATCH]),
+              cap100_b128=sub(w_cap100[128])),
         entry("K3", "mu_h_solve_columns",
               "se_snmf_nat_tpu_torch/csrc/mu_h_cols.cu", C_REPLACES,
               k3_per_batch, c_errs[25],

@@ -104,32 +104,38 @@ def _q_maps(n_bins, p_len_k, p_len_l, dc_bin, gap, alpha_p, device, dtype):
                   dtype)
 
 
-def block_sparsity_stat(r_ring: torch.Tensor, l: int, *, n_bins: int,
+def block_sparsity_stat(r_ring: torch.Tensor, l, *, n_bins: int,
                         p_len_k: int, p_len_l: int, dc_bin: int, gap: int,
                         alpha_p: float) -> torch.Tensor:
     """Q (..., F) of the current ring contents r_ring (..., F, P_len_l), in
     any column order (every window statistic is a sum over the ring's time
-    axis).  ``l`` is the 1-based frame number, a host integer: up to
-    P_len_l the statistic keeps its initial value."""
+    axis).  ``l`` is the 1-based frame number: up to P_len_l the statistic
+    keeps its initial value.  A host integer serves every lane and skips the
+    window sums while the ring fills; an integer tensor of the ring's leading
+    shape (...,) gives each lane its own number as a select, and nothing is
+    read on the host."""
     maps = _q_maps(n_bins, p_len_k, p_len_l, dc_bin, gap, alpha_p,
                    r_ring.device, r_ring.dtype)
-    if int(l) <= p_len_l:
+    per_lane = torch.is_tensor(l)
+    if not per_lane and int(l) <= p_len_l:
         return maps.q_init.expand(r_ring.shape[:-1]).clone()
     rs = torch.sum(r_ring, dim=-1)
     rq = torch.sum(r_ring * r_ring, dim=-1)
     l1 = torch.matmul(rs, maps.wf)                          # (..., C)
     l2 = torch.sqrt(torch.matmul(rq, maps.wf))
-    return maps.q_of_windows(l1, l2, True)
+    return maps.q_of_windows(l1, l2,
+                             (l > p_len_l)[..., None] if per_lane else True)
 
 
 def block_sparsity_q(xm: torch.Tensor, dm: torch.Tensor, r_blk: torch.Tensor,
-                     l: int, *, n_bins: int, p_len_k: int, p_len_l: int,
+                     l, *, n_bins: int, p_len_k: int, p_len_l: int,
                      dc_bin: int, gap: int, alpha_p: float,
                      nonzerofloor: float
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """One frame with shift-ring semantics (the exact engine).  xm, dm:
     (..., F) reconstructions; r_blk: (..., F, P_len_l) ring; ``l``: the
-    1-based frame number (a host integer).  Returns (q (..., F),
+    1-based frame number, a host integer or a (...,) integer tensor with a
+    number per lane (see ``block_sparsity_stat``).  Returns (q (..., F),
     r_blk_new)."""
     snr = snr_column(xm, dm, nonzerofloor)
     r_new = torch.cat([r_blk[..., 1:], snr[..., None]], dim=-1)
@@ -145,10 +151,11 @@ def make_block_sparsity_q_block(k_block: int, *, n_bins: int, p_len_k: int,
                                 dtype=torch.float32):
     """Whole-block Q over lanes.
 
-    Returns ``q_block(snr_cols (B, K, F), r_ring (B, F, P), ls (K,),
+    Returns ``q_block(snr_cols (B, K, F), r_ring (B, F, P), ls,
     n_valid (B,)) -> (q (B, K, F), r_ring_new (B, F, P))``: ``ls`` are the
-    block's 1-based frame numbers, ``n_valid`` counts each lane's
-    non-padding frames (the ring advances past exactly those).
+    block's 1-based frame numbers, (K,) host integers or an integer tensor
+    (K,) or (B, K) (a row per lane) on the ring's device; ``n_valid`` counts
+    each lane's non-padding frames (the ring advances past exactly those).
 
       * time: ext = [ring | block columns] (F, P+K); rs = ext @ W_t with
         W_t[c, j] = 1 iff frame j's P-deep window covers column c;
@@ -174,8 +181,9 @@ def make_block_sparsity_q_block(k_block: int, *, n_bins: int, p_len_k: int,
         rq = (ext * ext) @ wt
         l1 = rs.transpose(-1, -2) @ maps.wf                 # (B, K, C)
         l2 = torch.sqrt(rq.transpose(-1, -2) @ maps.wf)
-        late = torch.as_tensor(np.asarray(ls) > p_len_l, device=ext.device)
-        q = maps.q_of_windows(l1, l2, late[:, None])
+        late = (ls > p_len_l if torch.is_tensor(ls) else torch.as_tensor(
+            np.asarray(ls) > p_len_l, device=ext.device))
+        q = maps.q_of_windows(l1, l2, late[..., None])
         idx = (n_valid[:, None].to(torch.int64) + ring_idx)   # (B, P)
         ring_new = torch.gather(
             ext, -1, idx[:, None, :].expand(-1, ext.shape[-2], -1))

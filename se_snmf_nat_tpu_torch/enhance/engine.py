@@ -23,11 +23,18 @@ a failure):
   the plain ``snmf_solve`` for another beta.
 
 ``Engine.h_solver`` and ``Engine.w_solver`` say which (``"kernel"`` or
-``"plain"``).  On the kernel route a step reads no device value on the
-host, so frames enqueue without waiting; the refit kernel is launched on
-every frame, most often with no lane active, because only the device knows
-which lanes refit.  The plain solvers end their loops early by asking the
-device whether any lane still runs.
+``"plain"``).  A dtype other than float32 takes the plain
+versions too: the kernels are float32 only, and the choice is made here,
+from the dtype, so no wrapper ever has to give way.  On the kernel route a
+step reads no device value on the host, so frames enqueue without waiting;
+the refit kernel is launched on every frame, most often with no lane active,
+because only the device knows which lanes refit.  The plain solvers end
+their loops early by asking the device whether any lane still runs.
+
+The frame number ``l`` is one host integer for all lanes, or an integer
+tensor with a number per lane (a serving fleet whose lanes restart their
+clocks one by one): then every branch on ``l`` is a per-lane select and the
+step converts no tensor to a host value.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ from se_snmf_nat_tpu_torch.enhance.blk_sparse import block_sparsity_q
 from se_snmf_nat_tpu_torch.enhance.state import (
     EngineState, init_engine_state)
 from se_snmf_nat_tpu_torch.kernels.mu import (
-    mu_h_solve_lanes, mu_w_solve_lanes)
+    mu_h_solve_lanes, mu_h_solve_lanes_ref, mu_w_solve_lanes,
+    mu_w_solve_lanes_ref)
 from se_snmf_nat_tpu_torch.nmf.solver import SnmfParams, snmf_solve
 from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_v4_rand_matrix
 
@@ -60,7 +68,11 @@ def _blocks(starts, total):
 
 class Engine(nn.Module):
     """``step(state, ym (B, F), l) -> (state, xm_tilde (B, F))`` with ``l``
-    the 1-based frame number, a host integer shared by every lane; with
+    the 1-based frame number: a host integer shared by every lane, or a
+    (B,) integer tensor on the state's device with a number per lane.  Given
+    a tensor, the step reads no device value on the host (no ``int()``,
+    ``bool()`` or ``.item()`` of a tensor outside the plain solvers), so on
+    the kernel route it can be enqueued, or captured, without a wait.  With
     ``emit_sources`` the output is ``(xm_tilde, events (B, E, F), noises
     (B, N, F))``, the per-event and per-noise reconstruction spectra of
     ``cfg.sep.event_rank`` / ``noise_rank``.
@@ -114,9 +126,11 @@ class Engine(nn.Module):
             w_mask[:r_x] = True
         self.register_buffer("w_mask_sep", torch.as_tensor(w_mask,
                                                            device=device))
-        kl = cfg.nmf.beta == 1.0
-        self.h_solver = "kernel" if kl and not self.semisup else "plain"
-        self.w_solver = "kernel" if kl else "plain"
+        self.kl = cfg.nmf.beta == 1.0
+        f32 = dtype == torch.float32
+        self.h_solver = ("kernel" if self.kl and not self.semisup and f32
+                         else "plain")
+        self.w_solver = "kernel" if self.kl and f32 else "plain"
         self.event_blocks = _blocks(sep.event_rank, r_x)
         self.noise_blocks = _blocks(sep.noise_rank, r_d)
 
@@ -132,9 +146,11 @@ class Engine(nn.Module):
         """The H-solve of one column a lane: (B, R)."""
         p = self.params
         v = y_sep[:, :, None].contiguous()
-        if self.h_solver == "kernel":
-            a, _ = mu_h_solve_lanes(v, w_sep, self.h0, p.max_iter, p.conv_eps,
-                                    p.sparsity, p.flr)
+        if self.kl and not self.semisup:
+            solve = (mu_h_solve_lanes if self.h_solver == "kernel"
+                     else mu_h_solve_lanes_ref)
+            a, _ = solve(v, w_sep, self.h0, p.max_iter, p.conv_eps,
+                         p.sparsity, p.flr)
             return a[:, :, 0]
         res = snmf_solve(v, w_sep, self.h0, self.w_mask_sep,
                          torch.ones_like(self.w_mask_sep), p,
@@ -145,9 +161,11 @@ class Engine(nn.Module):
     def _refit(self, target, w0, h0a, r_up, active) -> torch.Tensor:
         """The W-only solve of the triggered head columns: (B, F_sep, R_a)."""
         p = self.params
-        if self.w_solver == "kernel":
-            w, _ = mu_w_solve_lanes(target.contiguous(), w0, h0a, active,
-                                    p.max_iter, p.conv_eps, p.sparsity, p.flr)
+        if self.kl:
+            solve = (mu_w_solve_lanes if self.w_solver == "kernel"
+                     else mu_w_solve_lanes_ref)
+            w, _ = solve(target.contiguous(), w0, h0a, active, p.max_iter,
+                         p.conv_eps, p.sparsity, p.flr)
             return w
         return snmf_solve(target, w0, h0a, r_up, torch.zeros_like(r_up), p,
                           update_w=True, update_h=False, active=active,
@@ -166,13 +184,14 @@ class Engine(nn.Module):
             out.append(to_dft(rec))
         return out
 
-    def step(self, state: EngineState, ym: torch.Tensor, l: int):
+    def step(self, state: EngineState, ym: torch.Tensor, l):
         cfg = self.cfg
         s, sep, ad, en, blk = (cfg.signal, cfg.sep, cfg.adapt, cfg.enhance,
                                cfg.blk)
         r_x, r_d, r_a = sep.r_x, sep.r_d, ad.r_a
         flr = s.nonzerofloor
-        l = int(l)
+        per_lane = torch.is_tensor(l)
+        l = l.reshape(-1) if per_lane else int(l)
         ym = ym.to(self.dtype)
         n_lanes = ym.shape[0]
 
@@ -230,15 +249,19 @@ class Engine(nn.Module):
             q, r_blk = torch.ones_like(ym), state.r_blk
 
         # ---- adaptive noise floor + gain
-        lambda_dav = ym_dft if l == 1 else state.lambda_dav
+        if per_lane:
+            lambda_dav = torch.where((l == 1)[:, None], ym_dft,
+                                     state.lambda_dav)
+        else:
+            lambda_dav = ym_dft if l == 1 else state.lambda_dav
         a_d_mag = torch.sum(a[:, r_x:], dim=-1) / r_d          # (B,)
         a_x_mag = torch.sum(a[:, :r_x], dim=-1) / r_x
         beta = torch.clamp(20.0 * torch.log10(a_d_mag / a_x_mag) * en.beta,
                            en.beta, en.beta_max)
         lambda_dav = (en.alpha_d * lambda_dav
                       + (1 - en.alpha_d) * dm_hat * beta[:, None])
-        in_init = l <= ad.init_n_len
-        if in_init:
+        in_init = l <= ad.init_n_len          # bool, or (B,) per lane
+        if not per_lane and in_init:
             gain = torch.full_like(ym, flr)
             a_x_mag = torch.full_like(a_x_mag, flr)
         else:
@@ -251,6 +274,12 @@ class Engine(nn.Module):
                 eta = torch.clamp(eta, min=en.eta_floor)
                 gain = eta / (eta + 1.0)
             gain = torch.clamp(gain, max=1.0)
+            if per_lane:
+                # both sides exist; a 0/0 of the discarded gain stays there
+                gain = torch.where(in_init[:, None],
+                                   torch.full_like(gain, flr), gain)
+                a_x_mag = torch.where(in_init,
+                                      torch.full_like(a_x_mag, flr), a_x_mag)
         xm_tilde = gain * ym
 
         new_state = state._replace(lambda_dav=lambda_dav, xm_tilde=xm_tilde,
@@ -275,12 +304,15 @@ class Engine(nn.Module):
         q_control = (1.0 - torch.mean(q, dim=-1)) * ad.ar_up       # (B,)
         trigger = state.adapt_on & (q_control * a_d_mag > a_x_mag)
         # the noise reference builds from the raw DFT power spectrum
-        if in_init:
+        per_lane = torch.is_tensor(in_init)
+        if not per_lane and in_init:
             d_ref = ym
         else:
-            m_ref = 1.0 - gain
+            m_ref = 1.0 - gain                 # a tensor of its own
             m_ref[:, : s.dc_bin] = flr
             d_ref = ym * m_ref
+            if per_lane:
+                d_ref = torch.where(in_init[:, None], ym, d_ref)
         lam_blk = torch.cat([state.lambda_d_blk[..., 1:], d_ref[..., None]],
                             dim=-1)
         ad_blk = torch.cat([state.ad_blk[..., 1:],

@@ -33,7 +33,8 @@ from se_snmf_nat_tpu_torch.enhance.blk_sparse import (
     make_block_sparsity_q_block, snr_column)
 from se_snmf_nat_tpu_torch.enhance.state import EngineState
 from se_snmf_nat_tpu_torch.kernels.mu import (
-    mu_h_solve_lanes, mu_w_solve_lanes)
+    mu_h_solve_lanes, mu_h_solve_lanes_ref, mu_w_solve_lanes,
+    mu_w_solve_lanes_ref)
 from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_v4_rand_matrix
 
 H_SOLVE_FLR = 1e-9    # the solvers' floor in the reference plan (not
@@ -77,7 +78,14 @@ class BlockStep(nn.Module):
     """One K-frame block over all lanes:
     ``(state, ring_ptr, mag_blk (B, K, F), ls, ok_blk (B, K)) ->
     (state, ring_ptr, xm_tilde (B, K, F))``, with ``ls`` the block's 1-based
-    frame numbers (host integers, shared by every lane)."""
+    frame numbers: (K,) host integers shared by every lane, or an integer
+    tensor on the state's device, (K,) or (B, K) with a row per lane.  Given
+    a tensor, every branch on a frame number is a per-lane select and the
+    step reads no device value on the host outside the plain solvers.
+
+    ``h_solver`` and ``w_solver`` say ``"kernel"`` (float32) or ``"plain"``
+    (any other dtype: the kernels are float32 only), chosen here from the
+    dtype."""
 
     def __init__(self, cfg: PipelineConfig, b1_x, b1_d, b2_x=None, b2_d=None,
                  device=None, dtype=torch.float32, k_block: int = 16,
@@ -93,6 +101,8 @@ class BlockStep(nn.Module):
                 "the block plan's solves run in the KL kernels (beta=1)")
         self.cfg = cfg
         self.k_block = k_block
+        self.h_solver = self.w_solver = ("kernel" if dtype == torch.float32
+                                         else "plain")
         self.mel_mode = sep.b_sep_mode == "Mel"
         r_x, r_a = sep.r_x, ad.r_a
         r = r_x + sep.r_d
@@ -148,7 +158,9 @@ class BlockStep(nn.Module):
             y_sep = (ym_mel / vn + 1e-9) * tn
         else:
             y_sep = mag_blk
-        a, _ = mu_h_solve_lanes(
+        h_solve = (mu_h_solve_lanes if self.h_solver == "kernel"
+                   else mu_h_solve_lanes_ref)
+        a, _ = h_solve(
             y_sep.transpose(-1, -2).contiguous(), w_sep,
             self.h0_col.expand(-1, k_block).contiguous(), self.h_iters,
             self.h_eps, self.sparsity, H_SOLVE_FLR)               # (B, R, K)
@@ -189,14 +201,20 @@ class BlockStep(nn.Module):
                              device=mag_blk.device)
         gate = state.adapt_on if ad.adapt_train_n else torch.zeros_like(
             state.adapt_on)
+        per_lane = torch.is_tensor(ls)
         outs, d_refs, trigs = [], [], []
         for k in range(k_block):
-            l = int(ls[k])
+            # a host integer, or a (1,) / (B,) tensor of this frame's numbers
+            l = ls[..., k].reshape(-1) if per_lane else int(ls[k])
             ym, xm_hat, dm_hat = mag_blk[:, k], xm[:, k], dm[:, k]
             q, q_control = q_blk[:, k], qc_blk[:, k]
             ad_mag, ax_mag = a_d_mag[:, k], a_x_mag[:, k]
             ok = ok_blk[:, k]
-            lambda_dav = ym_dft_blk[:, k] if l == 1 else lambda_dav_c
+            if per_lane:
+                lambda_dav = torch.where((l == 1)[:, None], ym_dft_blk[:, k],
+                                         lambda_dav_c)
+            else:
+                lambda_dav = ym_dft_blk[:, k] if l == 1 else lambda_dav_c
             beta = torch.clamp(20.0 * torch.log10(ad_mag / ax_mag) * en.beta,
                                en.beta, en.beta_max)
             lambda_dav = (en.alpha_d * lambda_dav
@@ -210,18 +228,25 @@ class BlockStep(nn.Module):
                 eta = torch.clamp(eta, min=en.eta_floor)
                 gain = eta / (eta + 1.0)
             gain = torch.clamp(gain, max=1.0)
-            in_init = l <= ad.init_n_len
-            if in_init:
+            in_init = l <= ad.init_n_len      # bool, or per lane
+            if per_lane:
+                gain = torch.where(in_init[:, None],
+                                   torch.full_like(gain, flr), gain)
+                ax_mag = torch.where(in_init, torch.full_like(ax_mag, flr),
+                                     ax_mag)
+            elif in_init:
                 gain = torch.full_like(gain, flr)
                 ax_mag = torch.full_like(ax_mag, flr)
             xm_tilde = gain * ym
             trig = gate & (q_control * ad_mag > ax_mag) & ok
-            if in_init:
+            if not per_lane and in_init:
                 d_ref = ym
             else:
-                m_ref = 1.0 - gain
+                m_ref = 1.0 - gain             # a tensor of its own
                 m_ref[:, : s.dc_bin] = flr
                 d_ref = ym * m_ref
+                if per_lane:
+                    d_ref = torch.where(in_init[:, None], ym, d_ref)
             do_solve = trig & (switch == ad.update_period)
             switch_new = torch.where(
                 trig, torch.where(do_solve, torch.ones_like(switch),
@@ -262,7 +287,9 @@ class BlockStep(nn.Module):
         head = state.b_d_head
         upf = r_up.to(head.dtype)
         target = torch.matmul(self.melmat, lam_s) if self.mel_mode else lam_s
-        w_new, _ = mu_w_solve_lanes(
+        w_solve = (mu_w_solve_lanes if self.w_solver == "kernel"
+                   else mu_w_solve_lanes_ref)
+        w_new, _ = w_solve(
             target, head * upf[:, None, :], ad_s * upf[:, :, None], any_refit,
             self.w_iters, self.w_eps, self.sparsity, H_SOLVE_FLR)
         merged = torch.where(r_up[:, None, :], w_new, head)

@@ -39,7 +39,8 @@ from se_snmf_nat_tpu_torch.dsp.stft import (
     analysis_frames, dft_matrices_stacked, overlap_add, synthesis_frames)
 from se_snmf_nat_tpu_torch.enhance.blk_sparse import (
     make_block_sparsity_q_block, snr_column)
-from se_snmf_nat_tpu_torch.kernels.mu import mu_h_solve_columns
+from se_snmf_nat_tpu_torch.kernels.mu import (
+    mu_h_solve_columns, mu_h_solve_columns_ref)
 from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_v4_rand_matrix
 
 H_SOLVE_FLR = 1e-9    # the solver's floor in the reference plan
@@ -56,7 +57,9 @@ def supports_fast_plan(cfg: PipelineConfig) -> bool:
 
 class FastRun(nn.Module):
     """``run(frames (B, T, L), win (L,)) -> y (B, S)``: the whole-utterance
-    non-adaptive plan over B lanes."""
+    non-adaptive plan over B lanes.  ``h_solver`` says ``"kernel"``
+    (float32) or ``"plain"`` (any other dtype: the kernel is float32 only),
+    chosen here from the dtype."""
 
     def __init__(self, cfg: PipelineConfig, b1_x, b1_d, b2_x, b2_d,
                  device=None, dtype=torch.float32, dft_matmul: bool = False):
@@ -70,6 +73,7 @@ class FastRun(nn.Module):
         s, sep = cfg.signal, cfg.sep
         self.cfg = cfg
         self.dft_matmul = dft_matmul
+        self.h_solver = "kernel" if dtype == torch.float32 else "plain"
         self.mel_mode = sep.b_sep_mode == "Mel"
 
         def t(a):
@@ -120,7 +124,9 @@ class FastRun(nn.Module):
             y_sep = mag
         # ONE activation solve over every frame of every lane: the (N, F)
         # frame-major spectra go in as the (F, N) view
-        h, _ = mu_h_solve_columns(
+        h_solve = (mu_h_solve_columns if self.h_solver == "kernel"
+                   else mu_h_solve_columns_ref)
+        h, _ = h_solve(
             y_sep.reshape(n_lanes * t, -1).T, self.w_sep, self.h0_col,
             cfg.nmf.max_iter, cfg.nmf.conv_eps, float(cfg.nmf.sparsity),
             H_SOLVE_FLR)                                     # (R, B*T)

@@ -114,9 +114,12 @@ class SnmfEnhancer(nn.Module):
             dft_matmul=self.dft_matmul, cisi=self.cisi)
 
     def frame_loop(self, engine, mag: torch.Tensor, state: EngineState,
-                   n_valid, l0: int = 1):
+                   n_valid, l0=1):
         """The exact plan's loop over ``engine.step`` on spectra
-        mag (B, T, F), frame t carrying the number ``l0 + t``.  ``n_valid``
+        mag (B, T, F), frame t carrying the number ``l0 + t``: ``l0`` is one
+        host integer, or a (B,) integer tensor on the state's device with
+        each lane's own first number (then no step reads a device value on
+        the host, see ``Engine.step``).  ``n_valid``
         (B host integers) counts each lane's real frames: past them a lane's
         state stays as it is and its output is zero, and past the longest
         lane nothing runs.  Returns (state, outputs): each output of the

@@ -14,7 +14,8 @@ frames, so a push that completes a block waits for the device.  The
 overlap-add keeps the synthesised frames in the enhancer's dtype and adds
 each output hop's chunks in the order of ``dsp.stft.overlap_add`` (newest
 frame first), which makes the float32 sums the same bits as the offline
-plan's.
+plan's.  With ``quantize=False`` the samples come back as float64, whatever
+the session's dtype.
 """
 
 from __future__ import annotations
@@ -119,7 +120,7 @@ class StreamingSession:
 
     def _emit(self, outs: list[np.ndarray], quantize: bool) -> np.ndarray:
         y = np.concatenate(outs) if outs else np.zeros(0, self._np_dtype)
-        return enhanced_quantize(y) if quantize else y
+        return enhanced_quantize(y) if quantize else y.astype(np.float64)
 
     @torch.no_grad()
     def _flush_pending(self) -> list[np.ndarray]:

@@ -86,6 +86,53 @@ def test_block_form_equals_frame_form(gap):
     assert torch.equal(ring_blk, ring)
 
 
+@pytest.mark.parametrize("gap", [1, 3])
+def test_late_per_lane(gap):
+    """A frame number per lane: lanes below and above ``p_len_l`` in one
+    call equal the same lanes with their host integers, in the per-frame
+    form (a (B,) tensor) and in the whole-block form ((B, K) and (K,)
+    tensors), to summation order between a batch of three and a batch of
+    one, and bit for bit between a tensor and host integers on one batch;
+    the lane below keeps the initial value, NaN-free."""
+    xm, dm = _frames(20 + gap, 1, lanes=3)
+    ring = torch.as_tensor(np.random.default_rng(1).random((3, F, P_L)))
+    ring[0] = 0.0               # an empty ring: its window sums are 0/0
+    ls = (2, P_L, P_L + 5)
+    q, ring_new = tblk.block_sparsity_q(
+        torch.as_tensor(xm[0]), torch.as_tensor(dm[0]), ring,
+        torch.tensor(ls), gap=gap, nonzerofloor=1e-9, **KW)
+    assert bool(torch.isfinite(q).all())
+    for lane, l in enumerate(ls):
+        q_1, ring_1 = tblk.block_sparsity_q(
+            torch.as_tensor(xm[0, lane: lane + 1]),
+            torch.as_tensor(dm[0, lane: lane + 1]), ring[lane: lane + 1], l,
+            gap=gap, nonzerofloor=1e-9, **KW)
+        assert (q[lane] - q_1[0]).abs().max() < 1e-13   # summation order
+        assert torch.equal(ring_new[lane], ring_1[0])
+        assert bool((q[lane, DC:] != 0.1).any()) == (l > P_L)
+    # the whole-block form
+    k_blk = 5
+    xm, dm = _frames(30 + gap, k_blk, lanes=3)
+    snr = tblk.snr_column(torch.as_tensor(xm), torch.as_tensor(dm),
+                          1e-9).transpose(0, 1)            # (3, K, F)
+    q_fn = tblk.make_block_sparsity_q_block(
+        k_blk, gap=gap, device="cpu", dtype=torch.float64, **KW)
+    n_valid = torch.full((3,), k_blk)
+    l0 = torch.tensor((1, P_L - 2, P_L + 5))
+    q_b, ring_b = q_fn(snr, ring, l0[:, None] + torch.arange(k_blk), n_valid)
+    assert bool(torch.isfinite(q_b).all())
+    for lane in range(3):
+        host = np.arange(k_blk) + int(l0[lane])
+        sl = slice(lane, lane + 1)
+        q_1, ring_1 = q_fn(snr[sl], ring[sl], host, n_valid[sl])
+        assert (q_b[lane] - q_1[0]).abs().max() < 1e-13
+        assert torch.equal(ring_b[lane], ring_1[0])
+        q_t, _ = q_fn(snr[sl], ring[sl], torch.as_tensor(host), n_valid[sl])
+        assert torch.equal(q_t, q_1)
+        filled = torch.as_tensor(host > P_L)
+        assert torch.equal((q_b[lane, :, DC:] != 0.1).any(dim=-1), filled)
+
+
 def test_banded_sums_keep_the_digits_prefix_sums_lose():
     """Where a center's window holds ~1e-8 of the ring's mass below it (a
     noise-only frame on dictionaries that separate well), the reference's

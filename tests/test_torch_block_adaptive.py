@@ -194,3 +194,121 @@ def test_block_run_mel_modes_match_jax_x64(mode):
                 np.testing.assert_array_equal(got, want, err_msg=name)
             else:
                 assert _rel(got, want) < 1e-9, name
+
+
+# ---------------------------------------------------------------------------
+# A frame number per lane
+# ---------------------------------------------------------------------------
+
+L0 = (1, 3, 25)      # a lane at its first frame, one inside init_n_len and
+#                      below p_len_l, one past both
+K_MIXED = 8
+N_BLOCKS = 3
+
+
+def _mixed_inputs():
+    from se_snmf_nat_tpu_torch.dsp.stft import analysis_frames
+    from se_snmf_nat_tpu_torch.dsp.windows import sqrt_hann_periodic as win_t
+    cfg = _cfg()
+    s = cfg.signal
+    bx, bd = fixtures.synthetic_bases(s.n_bins, 16, 16, seed=3)
+    win = torch.as_tensor(win_t(s.framelength))
+    mags = []
+    for lane in range(len(L0)):
+        x = fixtures.noisy_utterance(K_MIXED * N_BLOCKS * s.frameshift,
+                                     seed=lane + 1)
+        fr = stream_frames(x, s.framelength, s.frameshift, n_flush=0)
+        mag, _ = analysis_frames(torch.as_tensor(fr), win, s.fftlength,
+                                 s.pow, s.dc_bin, s.nonzerofloor, s.preemph)
+        mags.append(mag)
+    return cfg, bx, bd, torch.stack(mags)          # (3, K * N_BLOCKS, F)
+
+
+def _port_blocks(step, st0, mags, ls_of_block, lanes):
+    from se_snmf_nat_tpu_torch.enhance.state import batch_state
+    from se_snmf_nat_tpu_torch.stream.block_adaptive import (
+        ring_ptr0, rings_to_shift_layout)
+    st = batch_state(st0, len(lanes))
+    ptr = ring_ptr0(len(lanes))
+    ok = torch.ones((len(lanes), K_MIXED), dtype=torch.bool)
+    outs = []
+    with torch.no_grad():
+        for b in range(N_BLOCKS):
+            st, ptr, xm = step(
+                st, ptr, mags[lanes, b * K_MIXED: (b + 1) * K_MIXED],
+                ls_of_block(b), ok)
+            outs.append(xm)
+    return rings_to_shift_layout(st, ptr), torch.cat(outs, dim=1)
+
+
+def test_block_step_per_lane_frame_numbers():
+    """A batch whose lanes carry different frame numbers through
+    ``BlockStep.forward`` ((B, K) tensor ``ls``) equals the same lanes run
+    alone with host integers and the JAX block step under ``vmap`` with
+    per-lane ``ls``: every output and every state field.  A (K,) tensor
+    gives the bits of the host integers."""
+    from se_snmf_nat_tpu.stream.block_adaptive import (
+        make_block_step as j_make_step,
+        rings_to_shift_layout as j_to_shift)
+    from se_snmf_nat_tpu_torch.enhance.state import init_engine_state
+    from se_snmf_nat_tpu_torch.stream.block_adaptive import make_block_step
+    cfg, bx, bd, mags = _mixed_inputs()
+    step = make_block_step(config_from_jax(cfg), bx, bd, device="cpu",
+                           dtype=torch.float64, k_block=K_MIXED)
+    assert (step.h_solver, step.w_solver) == ("plain", "plain")
+    step32 = make_block_step(config_from_jax(cfg), bx, bd, device="cpu",
+                             k_block=K_MIXED)
+    assert (step32.h_solver, step32.w_solver) == ("kernel", "kernel")
+    st0 = init_engine_state(config_from_jax(cfg), bd, cfg.signal.n_bins,
+                            "cpu", torch.float64)
+    k = torch.arange(K_MIXED)
+    l0 = torch.tensor(L0)
+    all_lanes = list(range(len(L0)))
+    st, out = _port_blocks(
+        step, st0, mags,
+        lambda b: l0[:, None] + b * K_MIXED + k[None, :], all_lanes)
+    assert bool(torch.isfinite(out).all())
+    for lane, first in enumerate(L0):
+        st_1, out_1 = _port_blocks(
+            step, st0, mags,
+            lambda b: np.arange(K_MIXED) + first + b * K_MIXED, [lane])
+        assert _rel(out[lane], out_1[0]) < 1e-12
+        for name in EngineState._fields:
+            got, want = getattr(st, name)[lane], getattr(st_1, name)[0]
+            if got.dtype.is_floating_point:
+                assert _rel(got, want) < 1e-12, name
+            else:
+                assert torch.equal(got, want), name
+        if lane == 0:
+            st_t, out_t = _port_blocks(
+                step, st0, mags, lambda b: k + first + b * K_MIXED, [lane])
+            assert torch.equal(out_t, out_1)
+            for name in EngineState._fields:
+                assert torch.equal(getattr(st_t, name), getattr(st_1, name))
+    # against the reference under vmap
+    jstep = jax.jit(jax.vmap(j_make_step(cfg, bx, bd, bx, bd, jnp.float64,
+                                         k_block=K_MIXED)))
+    n = len(L0)
+    jst = jax.tree.map(lambda a: jnp.broadcast_to(a, (n,) + a.shape),
+                       j_init(cfg, bd, cfg.signal.n_bins, jnp.float64, True))
+    jptr = jnp.zeros((n,), jnp.int32)
+    for b in range(N_BLOCKS):
+        ls = (jnp.asarray(L0, jnp.int32)[:, None] + b * K_MIXED
+              + jnp.arange(K_MIXED, dtype=jnp.int32)[None, :])
+        (jst, jptr), jout = jstep(
+            (jst, jptr),
+            (jnp.asarray(mags[:, b * K_MIXED: (b + 1) * K_MIXED].numpy()),
+             ls, jnp.ones((n, K_MIXED), bool)))
+        assert _rel(out[:, b * K_MIXED: (b + 1) * K_MIXED].numpy(),
+                    np.asarray(jout)) < 1e-9, b
+    jst = jax.vmap(j_to_shift)(jst, jptr)
+    got_st = state_to_numpy(st)
+    for name in EngineState._fields:
+        got, want = getattr(got_st, name), np.asarray(getattr(jst, name))
+        assert got.shape == want.shape, name
+        if got.dtype.kind in "biu":
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        else:
+            assert _rel(got, want) < 1e-9, name
+    # a refit moved some lane's head: the fixture drives the adaptation
+    assert np.abs(got_st.b_d_head - bd[None, :, :R_A]).max() > 1e-3

@@ -1,9 +1,12 @@
 """The port's own copies of the reference package's host-only modules agree
 with the originals: the configuration and its presets field for field, the
-headline plan, and the MATLAB-compatibility numerics bit for bit on seeded
-NumPy inputs."""
+headline plan, the MATLAB-compatibility numerics bit for bit on seeded NumPy inputs, and
+the TCP server statement for statement outside the statements of its one
+repair."""
 
+import ast
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -11,11 +14,13 @@ import pytest
 from se_snmf_nat_tpu import config as j_config
 from se_snmf_nat_tpu import headline as j_headline
 from se_snmf_nat_tpu.io import wavio as j_wavio
+from se_snmf_nat_tpu.runtime import server as j_server
 from se_snmf_nat_tpu.utils import matlab_compat as j_compat
 from se_snmf_nat_tpu_torch import config as t_config
 from se_snmf_nat_tpu_torch import headline as t_headline
 from se_snmf_nat_tpu_torch.convert import config_from_jax
 from se_snmf_nat_tpu_torch.io import wavio as t_wavio
+from se_snmf_nat_tpu_torch.runtime import server as t_server
 from se_snmf_nat_tpu_torch.utils import matlab_compat as t_compat
 
 NAMES = ("default_config",) + tuple(j_config.PRESETS)
@@ -103,3 +108,79 @@ def test_rounding_and_quantisers_bit_equal(seed):
     got = t_wavio.enhanced_quantize(x)
     assert got.dtype == np.int16
     np.testing.assert_array_equal(got, j_wavio.enhanced_quantize(x))
+
+
+# the port's repair of the server: the two methods it adds, the call that
+# takes the place of the reference's plain abort, and the statements that
+# mention the flushing transports
+REPAIR_METHODS = {"EnhanceServer._abort_or_flush",
+                  "EnhanceServer._abort_flushing"}
+REPAIR_CALL = ("self._abort_or_flush(ln)", "ln.writer.transport.abort()")
+REPAIR_NAME = "_flushing"
+
+
+def _server_functions(module, without_repair=False):
+    """{qualified name: ``ast.dump`` of the body without its docstring} for
+    every function of the server module, and the module's other statements,
+    with the fleet's import pointed at one package name.  With
+    ``without_repair`` the repair is taken out again: its methods, its call
+    (put back to the reference's abort) and every simple statement that
+    names ``_flushing``."""
+    src = inspect.getsource(module).replace("se_snmf_nat_tpu_torch",
+                                            "se_snmf_nat_tpu")
+    if without_repair:
+        assert src.count(REPAIR_CALL[0]) == 1
+        src = src.replace(*REPAIR_CALL)
+    tree = ast.parse(src)
+    funcs, rest = {}, []
+
+    def body_of(node):
+        body = node.body
+        if (body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            body = body[1:]
+        if without_repair:
+            body = [n for n in body
+                    if not (isinstance(n, (ast.Expr, ast.Assign,
+                                           ast.AnnAssign))
+                            and REPAIR_NAME in ast.dump(n))]
+        return body
+
+    def walk(nodes, prefix):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                name = prefix + node.name
+                if without_repair and name in REPAIR_METHODS:
+                    continue
+                funcs[name] = (ast.dump(node.args)
+                               + "".join(ast.dump(n) for n in body_of(node)))
+                walk(body_of(node), name + ".")
+            elif isinstance(node, ast.ClassDef):
+                walk(body_of(node), prefix + node.name + ".")
+            elif prefix == "":
+                rest.append(ast.dump(node))
+
+    walk(body_of(tree), "")
+    return funcs, rest
+
+
+def test_server_copy_equals_reference_outside_its_repair():
+    """``runtime/server.py`` is the reference's file with the fleet imported
+    from the port, a docstring that speaks of the card, and one repair: a
+    drained lane's transport that is still flushing is left to flush until a
+    deadline (``_abort_or_flush``, called where the reference aborts;
+    ``_abort_flushing``, called by ``stop``; the two ``_flushing`` fields of
+    ``__init__``).  With those statements taken out every function is the
+    reference's, statement for statement; with them in, only the three
+    functions that hold them differ."""
+    ref, ref_rest = _server_functions(j_server)
+    port, port_rest = _server_functions(t_server, without_repair=True)
+    assert port_rest == ref_rest
+    assert port == ref
+    whole, _ = _server_functions(t_server)
+    assert set(whole) - set(ref) == REPAIR_METHODS
+    assert {name for name in ref if whole[name] != ref[name]} == {
+        "EnhanceServer.__init__", "EnhanceServer.stop",
+        "EnhanceServer._lane_housekeeping"}
+    assert {"EnhanceServer", "enhance_over_socket"} <= set(dir(t_server))

@@ -78,12 +78,12 @@ def _bases(cfg):
     return b1 + b2
 
 
-def _spectra(cfg):
-    """(LANES, T, F) float64 power spectra of two noisy utterances."""
+def _spectra(cfg, lanes=LANES):
+    """(lanes, T, F) float64 power spectra of noisy utterances."""
     s = cfg.signal
     win = torch.as_tensor(sqrt_hann_periodic(s.framelength))
     mags = []
-    for lane in range(LANES):
+    for lane in range(lanes):
         x = fixtures.noisy_utterance(T * s.frameshift, seed=lane + 1)
         fr = stream_frames(x, s.framelength, s.frameshift, n_flush=0)
         mag, _ = analysis_frames(torch.as_tensor(fr), win, s.fftlength,
@@ -138,10 +138,15 @@ def test_engine_step_matches_jax_x64(case):
     ref_out, ref_st, st0 = _jax_run(cfg, bases, mags, jnp.float64, emit,
                                     adapt_on)
     eng, outs, st = _port_run(cfg, bases, mags, torch.float64, emit, st0)
+    # float64 takes the plain versions by name; float32 the kernels where
+    # the configuration is supervised and KL
+    assert (eng.h_solver, eng.w_solver) == ("plain", "plain")
+    eng32 = make_engine(config_from_jax(cfg), *bases, device="cpu",
+                        emit_sources=emit)
     kl = cfg.nmf.beta == 1.0
-    assert eng.h_solver == ("kernel" if kl and case != "semisupervised"
-                            else "plain")
-    assert eng.w_solver == ("kernel" if kl else "plain")
+    assert eng32.h_solver == ("kernel" if kl and case != "semisupervised"
+                              else "plain")
+    assert eng32.w_solver == ("kernel" if kl else "plain")
     head0 = np.asarray(bases[1])[:, :R_A]
     for lane in range(LANES):
         # the fixture must drive the adaptation: a refit changed the head
@@ -242,3 +247,217 @@ def test_engine_is_a_module_with_the_reference_entry_points():
     st = eng.init_state()
     assert st.b_d_head.shape == (cfg.signal.n_bins, R_A)
     assert st.b_d_head.dtype == torch.float64
+
+
+# ---------------------------------------------------------------------------
+# A frame number per lane
+# ---------------------------------------------------------------------------
+
+L0 = (1, 3, 25)      # a lane at its first frame, one inside init_n_len and
+#                      below p_len_l, one past both
+T_MIXED = 30
+
+
+def _state_rel(got, want, lane_got=None):
+    for name in EngineState._fields:
+        g = np.asarray(getattr(got, name))
+        g = g if lane_got is None else g[lane_got]
+        w = np.asarray(getattr(want, name))
+        assert g.shape == w.shape, name
+        if g.dtype.kind in "biu":
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            assert _rel(g, w) < 1e-9, name
+
+
+def _mixed_setup(case):
+    cfg = _cfg(**CASES[case])
+    bases = _bases(cfg)
+    mags = _spectra(cfg, lanes=len(L0))[:, :T_MIXED]
+    eng = make_engine(config_from_jax(cfg), *bases, device="cpu",
+                      dtype=torch.float64)
+    return cfg, bases, mags, eng
+
+
+def _port_loop(eng, mags, l0s, lanes=None):
+    """The steps of ``mags[lanes]`` from the engine's initial state; ``l0s``
+    a host integer or a (B,) tensor."""
+    from se_snmf_nat_tpu_torch.enhance.state import batch_state
+    lanes = list(range(mags.shape[0])) if lanes is None else lanes
+    st = batch_state(eng.init_state(), len(lanes))
+    outs = []
+    with torch.no_grad():
+        for i in range(mags.shape[1]):
+            st, out = eng.step(st, torch.as_tensor(mags[lanes, i]), l0s + i)
+            outs.append(out)
+    return st, torch.stack(outs, dim=1)
+
+
+@pytest.mark.parametrize("case", ["default", "wiener", "mel_conv"])
+def test_engine_step_per_lane_frame_numbers(case):
+    """A batch whose lanes carry different frame numbers equals the same
+    lanes run alone with a host integer, and the JAX step under ``vmap``
+    with a frame number per lane: every output and every state field."""
+    cfg, bases, mags, eng = _mixed_setup(case)
+    st, out = _port_loop(eng, mags, torch.tensor(L0))
+    assert bool(torch.isfinite(out).all())
+    for lane, l0 in enumerate(L0):
+        st_1, out_1 = _port_loop(eng, mags, l0, lanes=[lane])
+        assert _rel(out[lane], out_1[0]) < 1e-12
+        _state_rel(state_to_numpy(st), state_to_numpy(
+            EngineState(*(f[0] for f in st_1))), lane)
+    # the lanes differ in what their clocks gate: the first frames of lanes
+    # 0 and 1 are floored, lane 2's are not
+    flr = cfg.signal.nonzerofloor
+    assert _rel(out[0, 0], flr * mags[0, 0]) < 1e-12
+    assert _rel(out[1, 0], flr * mags[1, 0]) < 1e-12
+    assert float(out[2, 0].max()) > 1e3 * flr * mags[2, 0].max()
+    jeng = j_make_engine(cfg, *bases, dtype=jnp.float64)
+    jstep = jax.jit(jax.vmap(jeng.step))
+    jst = jax.tree.map(
+        lambda a: jnp.broadcast_to(a, (len(L0),) + a.shape),
+        jeng.init_state(jnp.float64))
+    for i in range(T_MIXED):
+        jst, jout = jstep(jst, (jnp.asarray(mags[:, i]),
+                                jnp.asarray(L0, jnp.int32) + i))
+        assert _rel(out[:, i].numpy(), np.asarray(jout)) < 1e-9, i
+    _state_rel(state_to_numpy(st), jax.tree.map(np.asarray, jst))
+
+
+@pytest.mark.parametrize("l0", [1, 12, 40])
+def test_engine_step_host_integer_equals_tensor_route(l0):
+    """At equal frame numbers the host-integer route and the per-lane
+    tensor route give the same bits (float64): selects pick values, they
+    compute none."""
+    _, _, mags, eng = _mixed_setup("default")
+    st_i, out_i = _port_loop(eng, mags[:, :8], l0)
+    st_t, out_t = _port_loop(eng, mags[:, :8],
+                             torch.full((len(L0),), l0, dtype=torch.int32))
+    assert torch.equal(out_i, out_t)
+    for name in EngineState._fields:
+        assert torch.equal(getattr(st_i, name), getattr(st_t, name)), name
+
+
+class _NoHostReads:
+    """While active, converting a tensor to a host value raises."""
+
+    NAMES = ("__bool__", "__int__", "__float__", "__index__", "item",
+             "tolist", "numpy", "cpu")
+
+    def __enter__(self):
+        self.saved = {n: getattr(torch.Tensor, n) for n in self.NAMES}
+
+        def refuse(name):
+            def fn(*_a, **_k):
+                raise AssertionError(f"Tensor.{name} on the tensor route")
+            return fn
+
+        for n in self.NAMES:
+            setattr(torch.Tensor, n, refuse(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(torch.Tensor, n, fn)
+
+
+def _solver_outside(guard, fn):
+    """The plain solver ``fn`` run with the guard lifted: on the card its
+    place is taken by a kernel launch, which reads nothing."""
+    def run(*args):
+        guard.__exit__()
+        try:
+            return fn(*args)
+        finally:
+            guard.__enter__()
+    return run
+
+
+def test_tensor_route_reads_no_device_value_on_the_host(monkeypatch):
+    """``Engine.step`` with a tensor ``l`` and ``frame_loop`` with a tensor
+    ``l0`` convert no tensor to a host value outside the solvers (the
+    float32 route, whose solvers are kernel launches on the card); with a
+    host-read guard in place the float32 results equal the unguarded
+    ones."""
+    from se_snmf_nat_tpu_torch.enhance import engine as engine_mod
+    from se_snmf_nat_tpu_torch.enhance.state import batch_state
+    from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    cfg = _cfg()
+    bases = _bases(cfg)
+    enh = SnmfEnhancer(config_from_jax(cfg), *bases, device="cpu")
+    eng = enh.engine
+    assert (eng.h_solver, eng.w_solver) == ("kernel", "kernel")
+    mags = torch.as_tensor(_spectra(cfg, lanes=3)[:, :20],
+                           dtype=torch.float32)
+    l0 = torch.tensor(L0)
+    with torch.no_grad():
+        st0 = batch_state(eng.init_state(), 3)
+        want_st, (want,) = enh.frame_loop(eng, mags, st0, [20] * 3, l0)
+        guard = _NoHostReads()
+        for name in ("mu_h_solve_lanes", "mu_w_solve_lanes"):
+            monkeypatch.setattr(engine_mod, name, _solver_outside(
+                guard, getattr(engine_mod, name)))
+        with guard:
+            got_st, (got,) = enh.frame_loop(eng, mags, st0, [20] * 3, l0)
+            with pytest.raises(AssertionError, match="tensor route"):
+                bool(l0[0] == 1)
+    assert torch.equal(got, want)
+    for name in EngineState._fields:
+        assert torch.equal(getattr(got_st, name), getattr(want_st, name))
+
+
+def test_block_step_tensor_route_reads_no_device_value_on_the_host(
+        monkeypatch):
+    """``BlockStep.forward`` with a (B, K) tensor of frame numbers converts
+    no tensor to a host value outside its solvers either."""
+    from se_snmf_nat_tpu_torch.enhance.state import batch_state
+    from se_snmf_nat_tpu_torch.stream import block_adaptive as ba_mod
+    cfg = _cfg()
+    bases = _bases(cfg)
+    k = 8
+    step = ba_mod.make_block_step(config_from_jax(cfg), *bases, device="cpu",
+                                  k_block=k)
+    mags = torch.as_tensor(_spectra(cfg, lanes=3)[:, :k],
+                           dtype=torch.float32)
+    ls = torch.tensor(L0)[:, None] + torch.arange(k)
+    ok = torch.ones((3, k), dtype=torch.bool)
+    with torch.no_grad():
+        st0 = batch_state(make_engine(config_from_jax(cfg), *bases,
+                                      device="cpu").init_state(), 3)
+        ptr = ba_mod.ring_ptr0(3)
+        want_st, want_ptr, want = step(st0, ptr, mags, ls, ok)
+        guard = _NoHostReads()
+        for name in ("mu_h_solve_lanes", "mu_w_solve_lanes"):
+            monkeypatch.setattr(ba_mod, name, _solver_outside(
+                guard, getattr(ba_mod, name)))
+        with guard:
+            got_st, got_ptr, got = step(st0, ptr, mags, ls, ok)
+    assert torch.equal(got, want) and torch.equal(got_ptr, want_ptr)
+    for name in EngineState._fields:
+        assert torch.equal(getattr(got_st, name), getattr(want_st, name))
+
+
+@pytest.mark.parametrize("case", ["default", "mel_conv"])
+def test_exact_plan_equals_numpy_oracle(case):
+    """``SnmfEnhancer.enhance`` on the exact plan (a loop over
+    ``Engine.step``) against the NumPy oracle of the reference package on a
+    short synthetic clip, float64: int16 identical."""
+    from se_snmf_nat_tpu.oracle.runner_np import enhance_samples_oracle
+    from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    cfg = _cfg(**CASES[case])
+    bases = _bases(cfg)
+    x = fixtures.noisy_utterance(40 * cfg.signal.frameshift, seed=9)
+    want = enhance_samples_oracle(x, cfg, *bases)
+    enh = SnmfEnhancer(config_from_jax(cfg), *bases, device="cpu",
+                       dtype=torch.float64)
+    assert enh.run is None and enh.fast_run is None
+    got, st = enh.enhance(x, return_state=True)
+    assert got.dtype == np.int16 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    assert (st.b_d_head - enh.initial_state().b_d_head).abs().max() > 1e-3
+    # the float streams agree past the first frame length (the oracle's
+    # overlap-add leaves out the floored frames before the delay, all of
+    # them below half an int16 step)
+    raw = enhance_samples_oracle(x, cfg, *bases, return_float=True)
+    n0 = cfg.signal.framelength
+    assert _rel(enh.enhance(x, quantize=False)[n0:], raw[n0:]) < 1e-9

@@ -246,3 +246,45 @@ def test_cuda_h_lanes_one_column_matches_plain_version():
                                            1e-9)
         assert torch.equal(h88[:, :, :1], h)
         assert torch.equal(trips88[:, :1], trips)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", ["exact", "block", "fast"])
+def test_float64_on_the_card_takes_the_plain_versions(plan):
+    """``dtype=torch.float64`` on the card: each plan chooses the plain
+    solvers when it is built (the kernels are float32 only and their
+    wrappers go on refusing float64), launches no kernel, and agrees with
+    the port's float64 CPU run within 1e-9 relative, int16 identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (float64 on the card against the CPU)")
+    from dataclasses import replace
+
+    from se_snmf_nat_tpu_torch import fixtures
+    from se_snmf_nat_tpu_torch.config import default_config, preset
+    from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    cfg = preset("snmf") if plan == "fast" else default_config()
+    cfg = cfg.evolve(sep=replace(cfg.sep, r_x=8, r_d=8),
+                     adapt=replace(cfg.adapt, r_a=4, m_a=10),
+                     nmf=replace(cfg.nmf, max_iter=6))
+    bx, bd = fixtures.synthetic_bases(cfg.signal.n_bins, 8, 8, seed=0)
+    kw = dict(dtype=torch.float64, block_adapt=8 if plan == "block" else 0)
+    card = SnmfEnhancer(cfg, bx, bd, bx, bd, **kw)
+    cpu = SnmfEnhancer(cfg, bx, bd, bx, bd, device="cpu", **kw)
+    solvers = {"exact": (card.engine.h_solver, card.engine.w_solver),
+               "block": (card.run.step.h_solver, card.run.step.w_solver)
+               if plan == "block" else None,
+               "fast": (card.fast_run.h_solver,) if plan == "fast" else None}
+    assert set(solvers[plan]) == {"plain"}
+    x = fixtures.noisy_utterance(4800, seed=1)
+    n0 = (mu.mu_h_solve_lanes.launches, mu.mu_w_solve_lanes.launches,
+          mu.mu_h_solve_columns.launches)
+    got, want = card.enhance(x, quantize=False), cpu.enhance(x,
+                                                             quantize=False)
+    assert n0 == (mu.mu_h_solve_lanes.launches, mu.mu_w_solve_lanes.launches,
+                  mu.mu_h_solve_columns.launches)
+    assert np.abs(got - want).max() <= 1e-9 * np.abs(want).max()
+    np.testing.assert_array_equal(card.enhance(x), cpu.enhance(x))
+    v = torch.ones((1, 8, 1), dtype=torch.float64, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        mu.mu_h_solve_lanes(v, v.expand(1, 8, 8).contiguous(), v[0], 5, 0.0,
+                            5.0, 1e-9)

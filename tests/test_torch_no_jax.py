@@ -38,6 +38,8 @@ def _run(code: str, cwd=ROOT, env_extra=None):
     "se_snmf_nat_tpu_torch.enhance.blk_sparse",
     "se_snmf_nat_tpu_torch.stream.streaming",
     "se_snmf_nat_tpu_torch.nmf.solver",
+    "se_snmf_nat_tpu_torch.stream.serving",
+    "se_snmf_nat_tpu_torch.runtime.server",
 ])
 def test_port_imports_without_jax(module):
     """Importing a port module loads neither ``jax`` nor any module of the
@@ -104,7 +106,10 @@ def _default_device_cases():
     from se_snmf_nat_tpu_torch.stream.block_adaptive import (
         make_block_adaptive_run, make_block_step)
     from se_snmf_nat_tpu_torch.stream.fast_pipeline import make_fast_run
+    from se_snmf_nat_tpu_torch.runtime.server import EnhanceServer
     from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    from se_snmf_nat_tpu_torch.stream.serving import (
+        MultiStreamSession, ShardedFleet)
     from se_snmf_nat_tpu_torch.stream.streaming import StreamingSession
     cfg, fixed = default_config(), preset("snmf")
     bx, bd = fixtures.synthetic_bases(cfg.signal.n_bins, cfg.sep.r_x,
@@ -119,6 +124,11 @@ def _default_device_cases():
         "make_engine": lambda: make_engine(cfg, *b4, emit_sources=True),
         "StreamingSession": lambda: StreamingSession(
             SnmfEnhancer(cfg, *b4), block_frames=8),
+        "MultiStreamSession": lambda: MultiStreamSession(
+            SnmfEnhancer(cfg, *b4), 2, block_frames=8, wire="samples"),
+        "ShardedFleet": lambda: ShardedFleet(
+            SnmfEnhancer(cfg, *b4), 4, sub_fleets=2),
+        "EnhanceServer": lambda: EnhanceServer(SnmfEnhancer(cfg, *b4)),
         "make_fast_run": lambda: make_fast_run(fixed, *b4),
         "make_block_adaptive_run": lambda: make_block_adaptive_run(cfg, *b4),
         "make_block_step": lambda: make_block_step(cfg, bx, bd),
@@ -135,13 +145,31 @@ def _default_device_cases():
     "SnmfEnhancer_block", "SnmfEnhancer_fast", "make_fast_run",
     "make_block_adaptive_run", "make_block_step", "init_engine_state",
     "build_headline_enhancer", "bases_to_torch", "state_from_jax",
-    "SnmfEnhancer_exact", "Engine", "make_engine", "StreamingSession"])
+    "SnmfEnhancer_exact", "Engine", "make_engine", "StreamingSession",
+    "MultiStreamSession", "ShardedFleet", "EnhanceServer"])
 def test_entry_point_without_device_raises_without_a_card(entry):
     """``device=None`` means the card: without one every entry point raises
     and none carries on on the CPU."""
     _no_cuda()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _default_device_cases()[entry]()
+
+
+@pytest.mark.parametrize("path", ["stream/serving.py", "runtime/server.py"])
+def test_fleet_and_server_name_no_device_of_their_own(path):
+    """The fleet and the server live on their enhancer's device: they take
+    no ``device=`` and never name the CPU, so they add no default beside the
+    enhancer's (which raises without a card, above)."""
+    import inspect
+
+    from se_snmf_nat_tpu_torch.runtime.server import EnhanceServer
+    from se_snmf_nat_tpu_torch.stream.serving import (
+        MultiStreamSession, ShardedFleet)
+    src = (ROOT / "se_snmf_nat_tpu_torch" / path).read_text()
+    assert '"cpu"' not in src and "'cpu'" not in src
+    assert "resolve_device" not in src and "require_cuda" not in src
+    for cls in (MultiStreamSession, ShardedFleet, EnhanceServer):
+        assert "device" not in inspect.signature(cls.__init__).parameters
 
 
 def test_resolve_device_takes_the_cpu_only_when_named():

@@ -257,3 +257,32 @@ def test_warmed_then_reset_equals_fresh(setup, block_adaptive):
     np.testing.assert_array_equal(
         np.concatenate([sess.push(x), sess.flush()]),
         np.concatenate([seeded.push(x), seeded.flush()]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_quantize_false_returns_float64(setup, dtype):
+    """``push``, ``flush`` and ``set_adaptation`` return float64 with
+    ``quantize=False`` whatever the session's dtype (the reference's host
+    accumulator is float64), and the values are the ones the int16 stream
+    quantises."""
+    cfg, bases, _, _, x = setup
+    enh = SnmfEnhancer(config_from_jax(cfg), *bases, device="cpu",
+                       dtype=dtype, matlab_ad_blk_init=False)
+    x = x[:3200]
+    sess = StreamingSession(enh, block_frames=4)
+    parts = [sess.push(x[:1000], quantize=False),
+             sess.set_adaptation(False, quantize=False),
+             sess.push(x[1000:], quantize=False),
+             sess.flush(quantize=False)]
+    assert all(p.dtype == np.float64 for p in parts)
+    assert len(parts[1])                   # the toggle flushed pending frames
+    sess.reset()
+    ints = [sess.push(x[:1000]), sess.set_adaptation(False),
+            sess.push(x[1000:]), sess.flush()]
+    from se_snmf_nat_tpu_torch.io.wavio import enhanced_quantize
+    np.testing.assert_array_equal(
+        enhanced_quantize(np.concatenate(parts)), np.concatenate(ints))
+    if dtype == torch.float32:
+        # the float32 overlap-add stays: the values are float32 numbers
+        y = np.concatenate(parts)
+        np.testing.assert_array_equal(y, y.astype(np.float32))
