@@ -83,7 +83,26 @@ before printing any result.
    the card, three concurrent clients and a fourth on a freed lane, each
    stream identical to a fleet run of the same samples; every await has a
    time limit;
-10. a JSON line of the kernels (``launches``: the sum over the paths'
+10. training: 60 wavs of 12 s a class (speech-like, white noise) in a
+    temporary directory; ``train_event_basis_cached`` of each class on the
+    card at ``default_config()`` (R=100, cap 100, eps 1e-3; ~72,000 frames,
+    V_DFT 513 x ~72,000 float32 uploaded once) with the host seconds of
+    each stage (sequence, features, the exemplar draw, the DFT and Mel
+    solves, the save), the trips and device ms of each solve beside its
+    bound, and a second call that must hit the cache; the card's training
+    held to the CPU's on a 30 s sequence of the same data (float64: within
+    1e-9, trips equal; float32 at 100 fixed trips: within twice the CPU
+    float32 run's own error to CPU float64); ``dnmf_refit`` (DFT, 60 s of
+    each class) timed on the card and held likewise; then the trained
+    dictionaries, loaded from ``R_100.npz``, through the headline plan (K1,
+    K2), the fast plan ``snmf`` (K3) and the ``exemplar`` preset (R=500 a
+    class, no solve; K3 on its R=1000 streaming path, that launch held to
+    its plain version and timed beside it and its bound) on 16 noisy
+    utterances: int16 of the expected length, finite, correlation >= 0.99
+    with the port's float64 CPU run on 2 lanes, and the mean segmental SNR
+    and STOI of input and output against the clean signal (the segmental
+    SNR must rise, as the CPU tests show the reference's does);
+11. a JSON line of the kernels (``launches``: the sum over the paths'
     first runs, each counted from zero, also given by path), the card's
     name and power limit, and the result line ``{"ok": true, "device":
     {...}}`` last.
@@ -92,6 +111,7 @@ before printing any result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import subprocess
 import sys
@@ -1253,6 +1273,374 @@ def check_server(mu, enh, card):
     return launches
 
 
+TRAIN_CLIPS = 60           # wavs a class, of TRAIN_CLIP_S each: the default
+TRAIN_CLIP_S = 12.0        # 720 s sequence cap, ~72,000 frames
+TRAIN_SEEDS = {"speech": 1000, "noise": 2000}   # the clips' first seeds
+TRAINED_UTT_SEED = 500     # the enhanced utterances: seeds no clip uses
+SHUFFLE_SEED = 7           # the training sequences' file order
+
+
+@contextlib.contextmanager
+def recorded(module, stages=(), solves=False):
+    """While in the ``with``, the ``stages`` functions of ``module`` log
+    ``(name, host s)`` a call and, with ``solves``, ``module.snmf_solve``
+    logs ``("solve", trips, device ms, V's shape)`` (device ms from CUDA
+    events around the call, None for CPU tensors)."""
+    log, saved = [], {}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            log.append((name, time.perf_counter() - t0))
+            return out
+        return call
+
+    def solve(fn):
+        def call(*a, **k):
+            if not a[0].is_cuda:
+                res = fn(*a, **k)
+                log.append(("solve", int(res.iters), None, tuple(a[0].shape)))
+                return res
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn(*a, **k)
+            stop.record()
+            torch.cuda.synchronize()
+            log.append(("solve", int(res.iters), start.elapsed_time(stop),
+                        tuple(a[0].shape)))
+            return res
+        return call
+
+    for name in stages:
+        saved[name] = getattr(module, name)
+        setattr(module, name, timed(name, saved[name]))
+    if solves:
+        saved["snmf_solve"] = module.snmf_solve
+        module.snmf_solve = solve(saved["snmf_solve"])
+    try:
+        yield log
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def rel_np(got, ref) -> float:
+    """``rel_err``'s relative error of two arrays."""
+    return rel_err(torch.as_tensor(np.asarray(got)),
+                   torch.as_tensor(np.asarray(ref)))[0]
+
+
+def solve_line(entry, r, products=4) -> str:
+    """One solve of a log: trips, device ms and the bound of its products a
+    trip (W+H: the H and W updates and the two reconstructions; one factor:
+    its update and one reconstruction), each 2 F R N operations."""
+    _, trips, ms, (f, n) = entry
+    bnd, by = bound(2.0 * products * f * r * n * trips,
+                    4.0 * (f * n + 2 * r * (f + n)))
+    return (f"{f} x {n}: {trips} trips, {ms:.1f} device ms "
+            f"({ms / trips:.3f} a trip; bound {bnd:.1f} ms by {by}, share "
+            f"{bnd / ms:.1%})")
+
+
+def train_class(basis, kind, db, out, cfg, dev, card):
+    """Phase 10, one class: ``train_event_basis_cached`` on the card
+    (float32) with the host seconds of each stage, the trips and device ms
+    of each solve; then the cache hit."""
+    stages = ("build_training_sequence", "training_features",
+              "exemplar_sample_idx", "_solve_full", "save_basis")
+    r = cfg.sep.r_x
+    with recorded(basis, stages, solves=True) as log:
+        t0 = time.perf_counter()
+        pair = basis.train_event_basis_cached(
+            db, out, cfg, r, shuffle_rng=np.random.default_rng(SHUFFLE_SEED),
+            device=dev)
+        total = time.perf_counter() - t0
+    secs = [e for e in log if e[0] != "solve"]
+    solves = [e for e in log if e[0] == "solve"]
+    names = [e[0] for e in secs]
+    if names != ["build_training_sequence", "training_features",
+                 "exemplar_sample_idx", "_solve_full", "_solve_full",
+                 "save_basis"] or len(solves) != 2:
+        raise AssertionError(f"training {kind}: stages {names}")
+    n_frames = solves[0][3][1]
+    print(f"training {kind} (float32 on the card, R={r}): sequence "
+          f"{secs[0][1]:.2f} s, features {secs[1][1]:.2f} s, exemplar draw "
+          f"{secs[2][1]:.2f} s, DFT solve {secs[3][1]:.2f} s, Mel solve "
+          f"{secs[4][1]:.2f} s, save {secs[5][1]:.3f} s; total {total:.2f} s "
+          f"host; V_DFT 513 x {n_frames} ({513 * n_frames * 4 / 1e6:.1f} MB "
+          f"float32 on the card)")
+    for dom, e in zip(("DFT", "Mel"), solves):
+        print(f"training {kind} {dom} solve {solve_line(e, r)} ({card})")
+    t0 = time.perf_counter()
+    with recorded(basis, stages) as hit_log:
+        again = basis.train_event_basis_cached(db, out, cfg, r, device=dev)
+    hit_s = time.perf_counter() - t0
+    print(f"training {kind}: second call a cache hit in {hit_s:.4f} s, "
+          f"stages run {[e[0] for e in hit_log]}")
+    if hit_log or not (np.array_equal(again.b_dft, pair.b_dft)
+                       and np.array_equal(again.b_mel, pair.b_mel)):
+        raise AssertionError(f"training {kind}: the second call retrained")
+    for name, b, f in (("b_dft", pair.b_dft, 513),
+                       ("b_mel", pair.b_mel, cfg.signal.f_order)):
+        norms = np.sqrt(np.sum((b.astype(np.float64) - 1e-9) ** 2, axis=0))
+        if b.shape != (f, r) or not np.all(np.isfinite(b)) \
+                or np.abs(norms - 1.0).max() > 1e-5:
+            raise AssertionError(f"training {kind}: {name} {b.shape}, "
+                                 f"norms {norms.min()}..{norms.max()}")
+    return pair, n_frames
+
+
+def hold_training(basis, db, cfg, dev, card):
+    """Phase 10: the card's training against the CPU's on a 30 s sequence
+    of the same data: float64 within 1e-9 with equal trips; float32 at 100
+    fixed trips within twice the CPU float32 run's own error to CPU
+    float64."""
+    from dataclasses import replace
+
+    from se_snmf_nat_tpu_torch.train.dataset import build_training_sequence
+    from se_snmf_nat_tpu_torch.train.features import training_features
+    cfg30 = cfg.evolve(train=replace(cfg.train, train_seq_len_max_s=30.0))
+    seq, _ = build_training_sequence(
+        db, cfg30, rng=np.random.default_rng(SHUFFLE_SEED))
+    feats = training_features(seq, cfg30)
+    r = cfg.sep.r_x
+
+    def run(c, device, dtype):
+        t0 = time.perf_counter()
+        res = basis.train_event_basis(feats, c, r, device=device,
+                                      dtype=dtype)
+        return res, time.perf_counter() - t0
+
+    (card64, s_card), (cpu64, s_cpu) = (run(cfg30, dev, torch.float64),
+                                        run(cfg30, "cpu", torch.float64))
+    err = max(rel_np(card64.basis.b_dft, cpu64.basis.b_dft),
+              rel_np(card64.basis.b_mel, cpu64.basis.b_mel),
+              rel_np(card64.a_dft, cpu64.a_dft))
+    trips = ((card64.iters_dft, card64.iters_mel),
+             (cpu64.iters_dft, cpu64.iters_mel))
+    print(f"training held, 30 s ({feats.tf_mag.shape[1]} frames), float64, "
+          f"eps 1e-3: card {s_card:.2f} s, CPU {s_cpu:.2f} s; max relative "
+          f"difference {err:.3e} (limit 1e-9); trips DFT/Mel card "
+          f"{trips[0]}, CPU {trips[1]} ({card})")
+    if not err <= 1e-9 or trips[0] != trips[1]:
+        raise AssertionError("card float64 training disagrees with the CPU")
+    fixed = cfg30.evolve(nmf=replace(cfg30.nmf, conv_eps=0.0))
+    card32, _ = run(fixed, dev, torch.float32)
+    ref64, _ = run(fixed, "cpu", torch.float64)
+    cpu32, _ = run(fixed, "cpu", torch.float32)
+    for name in ("b_dft", "b_mel"):
+        e_card = rel_np(getattr(card32.basis, name), getattr(ref64.basis, name))
+        e_cpu = rel_np(getattr(cpu32.basis, name), getattr(ref64.basis, name))
+        print(f"training held, float32 at {fixed.nmf.max_iter} fixed trips, "
+              f"{name}: card {e_card:.3e} of CPU float64 (CPU float32 "
+              f"{e_cpu:.3e}, limit {2 * e_cpu:.3e})")
+        if not e_card <= 2.0 * e_cpu:
+            raise AssertionError(f"card float32 training, {name}")
+
+
+def hold_dnmf(dnmf, dirs, pairs, cfg, dev, card):
+    """Phase 10, DNMF: ``dnmf_refit`` in the DFT domain on 60 s of clean and
+    60 s of noise with the two trained dictionaries, on the card (float32,
+    timed) and held to the CPU as the training is."""
+    from dataclasses import replace
+
+    from se_snmf_nat_tpu_torch.train.dataset import build_training_sequence
+    cfg60 = cfg.evolve(train=replace(cfg.train, train_seq_len_max_s=60.0))
+    x, d = (build_training_sequence(
+        dirs[k], cfg60, rng=np.random.default_rng(SHUFFLE_SEED))[0]
+        for k in ("speech", "noise"))
+    b = np.concatenate([pairs["speech"].b_dft, pairs["noise"].b_dft],
+                       axis=1).astype(np.float64)
+    r = b.shape[1]
+
+    def run(c, device, dtype):
+        with recorded(dnmf, solves=True) as log:
+            t0 = time.perf_counter()
+            out = dnmf.dnmf_refit(x, d, b, c, device=device, dtype=dtype)
+        return out, time.perf_counter() - t0, log
+
+    got, s32, log = run(cfg, dev, torch.float32)
+    if got.shape != b.shape or not np.all(np.isfinite(got)):
+        raise AssertionError("DNMF output")
+    for what, e, rr in zip(("Eq. 6 H-only", "Eq. 7 W-only speech",
+                            "Eq. 7 W-only noise"), log, (r, r // 2, r // 2)):
+        print(f"DNMF float32 on the card, {what} solve "
+              f"{solve_line(e, rr, products=2)} ({card})")
+    (card64, s64, log64), (cpu64, s_cpu, log_cpu) = (
+        run(cfg, dev, torch.float64), run(cfg, "cpu", torch.float64))
+    err = rel_np(card64, cpu64)
+    trips = ([e[1] for e in log64], [e[1] for e in log_cpu])
+    print(f"DNMF held, 60 s + 60 s, float64, eps 1e-3: card {s64:.2f} s, "
+          f"CPU {s_cpu:.2f} s (float32 card {s32:.2f} s host); max relative "
+          f"difference {err:.3e} (limit 1e-9); trips card {trips[0]}, CPU "
+          f"{trips[1]} ({card})")
+    if not err <= 1e-9 or trips[0] != trips[1]:
+        raise AssertionError("card float64 DNMF disagrees with the CPU")
+    fixed = cfg.evolve(nmf=replace(cfg.nmf, conv_eps=0.0))
+    card32 = run(fixed, dev, torch.float32)[0]
+    ref64 = run(fixed, "cpu", torch.float64)[0]
+    cpu32 = run(fixed, "cpu", torch.float32)[0]
+    e_card, e_cpu = rel_np(card32, ref64), rel_np(cpu32, ref64)
+    print(f"DNMF held, float32 at {fixed.nmf.max_iter} fixed trips: card "
+          f"{e_card:.3e} of CPU float64 (CPU float32 {e_cpu:.3e}, limit "
+          f"{2 * e_cpu:.3e})")
+    if not e_card <= 2.0 * e_cpu:
+        raise AssertionError("card float32 DNMF")
+
+
+def enhance_with_trained(mu, dev, card, pairs, exemplar):
+    """Phase 10: the trained dictionaries through the three plans on 16
+    noisy utterances: the headline block plan (K1, K2), the fast plan
+    ``snmf`` (K3) and the ``exemplar`` preset (K3 at R=1000, its streaming
+    path); output checks, correlation with the port's float64 CPU run,
+    segmental SNR and STOI against the clean signal.  Returns the launches
+    of the three plans' runs, counted from zero, and K3's exemplar launch
+    held and timed against its plain version."""
+    from se_snmf_nat_tpu_torch import fixtures, metrics
+    from se_snmf_nat_tpu_torch.config import default_config, preset
+    from se_snmf_nat_tpu_torch.headline import build_headline_enhancer
+    from se_snmf_nat_tpu_torch.stream import fast_pipeline
+    from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    xs = [fixtures.noisy_utterance(N_SAMPLES, seed=TRAINED_UTT_SEED + i)
+          for i in range(N_UTT)]
+    cleans = [fixtures.clean_utterance(N_SAMPLES, seed=TRAINED_UTT_SEED + i)
+              for i in range(N_UTT)]
+    sb, nb = pairs["speech"].b_dft, pairs["noise"].b_dft
+    se, ne = exemplar["speech"].b_dft, exemplar["noise"].b_dft
+    plans = (
+        ("headline", default_config(), (sb, nb, sb, nb), (1, 1, 0),
+         build_headline_enhancer),
+        ("fast snmf", preset("snmf"), (sb, nb, sb, nb), (0, 0, 1),
+         lambda c, b, **kw: SnmfEnhancer(c, *b, **kw)),
+        ("exemplar", preset("exemplar"), (se, ne, se, ne), (0, 0, 1),
+         lambda c, b, **kw: SnmfEnhancer(c, *b, **kw)))
+    k3_calls = []
+    inner = fast_pipeline.mu_h_solve_columns
+
+    def record_k3(*args):
+        k3_calls.append(args)
+        return inner(*args)
+
+    reset_launches(mu)
+    total = {"K1": 0, "K2": 0, "K3": 0}
+    fast_pipeline.mu_h_solve_columns = record_k3
+    try:
+        for name, cfg, bases, expect, make in plans:
+            enh = make(cfg, bases, device=dev)
+            before = read_launches(mu)
+            k3_calls.clear()
+            t0 = time.perf_counter()
+            ys = enh.enhance_batch(xs)
+            first_s = time.perf_counter() - t0
+            y_float = enh.enhance(xs[0], quantize=False)
+            now = read_launches(mu)
+            launches = {k: now[k] - before[k] for k in now}
+            exemplar_args = k3_calls[0] if name == "exemplar" else None
+            n_out = (N_SAMPLES // cfg.signal.frameshift + 1) \
+                * cfg.signal.frameshift
+            if not all(y.dtype == np.int16 and y.shape == (n_out,)
+                       for y in ys) or not np.all(np.isfinite(y_float)):
+                raise AssertionError(f"trained, {name}: outputs")
+            if tuple(int(launches[k] > 0) for k in ("K1", "K2", "K3")) \
+                    != expect:
+                raise AssertionError(f"trained, {name}: launches {launches}")
+            cpu = make(cfg, bases, device="cpu", dtype=torch.float64)
+            corrs = [float(np.corrcoef(a.astype(float), b.astype(float))[0, 1])
+                     for a, b in zip(cpu.enhance_batch(xs[:2]), ys[:2])]
+            snr = [np.mean([metrics.segmental_snr(c, y, 16000)
+                            for c, y in zip(cleans, zs)])
+                   for zs in (xs, [y.astype(float) for y in ys])]
+            stoi = [np.mean([metrics.stoi(c, y, 16000)
+                             for c, y in zip(cleans, zs)])
+                    for zs in (xs, [y.astype(float) for y in ys])]
+            print(f"trained dictionaries, {name} plan: enhance_batch B="
+                  f"{N_UTT} first call {first_s:.3f} s, launches {launches}; "
+                  f"{len(ys)} x int16[{n_out}], finite; card f32 vs CPU f64 "
+                  f"corr {', '.join(f'{c:.6f}' for c in corrs)}; mean "
+                  f"segmental SNR {snr[0]:.3f} -> {snr[1]:.3f} dB, STOI "
+                  f"{stoi[0]:.4f} -> {stoi[1]:.4f} ({card})")
+            if min(corrs) < 0.99:
+                raise AssertionError(f"trained, {name}: correlation")
+            # the CPU tests show the reference package raising the
+            # segmental SNR of such utterances with dictionaries it trained
+            if not snr[1] > snr[0]:
+                raise AssertionError(f"trained, {name}: no SNR gain")
+            for k in total:
+                total[k] += launches[k]
+    finally:
+        fast_pipeline.mu_h_solve_columns = inner
+
+    v, w, h0, cap, eps, sp, flr = exemplar_args
+    f, n = v.shape
+    r = w.shape[1]
+    shape = mu.mu_h_solve_columns_shape(f, r, n)
+    if shape["resident"]:
+        raise AssertionError("the exemplar K3 launch took the resident path")
+    h, trips = mu.mu_h_solve_columns(*exemplar_args)
+    cols = lambda same, hh: same[None, :].expand_as(hh)   # noqa: E731
+    err = compare(f"K3 mu_h_solve_columns exemplar F={f} R={r} N={n} "
+                  f"cap={cap} eps={eps}", h, trips, mu.mu_h_solve_columns_ref,
+                  exemplar_args, cols)
+    k1, k2, p1, p2 = in_turns(lambda: mu.mu_h_solve_columns(*exemplar_args),
+                              lambda: mu.mu_h_solve_columns_ref(
+                                  *exemplar_args))
+    ms, plain = min(k1, k2), min(p1, p2)
+    col_iters = trips.sum().item()
+    bnd, by = bound(4.0 * f * r * col_iters,
+                    4.0 * (f * n + f * r + r + r * n + n))
+    print(f"kernel K3 time exemplar F={f} R={r} N={n} cap {cap} eps {eps} "
+          f"(streaming path, {shape['clusters']} blocks x "
+          f"{shape['threads']} threads): {k1:.3f}, {k2:.3f} ms, plain "
+          f"{p1:.3f}, {p2:.3f} ms (in turns plain, kernel, kernel, plain); "
+          f"mean trips {trips.float().mean().item():.2f}; bound {bnd:.3f} ms "
+          f"by {by}, share {bnd / ms:.1%} ({card})")
+    return total, (err, ms, plain, bnd, by)
+
+
+def check_training(mu, dev, card):
+    """Phase 10: dictionary training at full width on the card, the holds
+    against the CPU, DNMF, and the trained dictionaries through K1, K2 and
+    K3.  Returns the launches of the enhancement with them and K3's
+    exemplar timing."""
+    import tempfile
+    from pathlib import Path
+
+    from se_snmf_nat_tpu_torch import fixtures
+    from se_snmf_nat_tpu_torch.config import default_config, preset
+    from se_snmf_nat_tpu_torch.io.basis import load_basis
+    from se_snmf_nat_tpu_torch.train import basis, dnmf
+    t_phase = time.perf_counter()
+    cfg = default_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        dirs = {k: fixtures.write_wav_dir(tmp / k, k, TRAIN_CLIPS,
+                                          TRAIN_CLIP_S, seed=TRAIN_SEEDS[k])
+                for k in TRAIN_SEEDS}
+        print(f"training data: {TRAIN_CLIPS} wavs of {TRAIN_CLIP_S:.0f} s a "
+              f"class (speech-like, white noise) written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        for k in dirs:
+            train_class(basis, k, dirs[k], tmp / "basis" / k, cfg, dev, card)
+        pairs = {k: load_basis(tmp / "basis" / k / f"R_{cfg.sep.r_x}.npz")
+                 for k in dirs}
+        hold_training(basis, dirs["speech"], cfg, dev, card)
+        hold_dnmf(dnmf, dirs, pairs, cfg, dev, card)
+        t0 = time.perf_counter()
+        ex_cfg = preset("exemplar")
+        exemplar = {k: basis.train_event_basis_cached(
+            dirs[k], tmp / "exemplar" / k, ex_cfg, ex_cfg.sep.r_x,
+            shuffle_rng=np.random.default_rng(SHUFFLE_SEED), device=dev)
+            for k in dirs}
+        print(f"training exemplar dictionaries (R={ex_cfg.sep.r_x} a class, "
+              f"no solve): {time.perf_counter() - t0:.2f} s host")
+        launches, k3 = enhance_with_trained(mu, dev, card, pairs, exemplar)
+    print(f"training phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, k3
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU path here",
@@ -1371,13 +1759,18 @@ def main() -> int:
     check_float64_on_card(mu, dev, card)
     server_launches = check_server(mu, exact_enh, card)
 
-    # 10. results: each path's launches were counted from zero around its
+    # 10. dictionary training, and the trained dictionaries through K1-K3
+    trained_launches, k3_exemplar = check_training(mu, dev, card)
+
+    # 11. results: each path's launches were counted from zero around its
     # own first run (headline, fast plan, exact plan, the hop-by-hop stream,
-    # the first fleet, the server's life)
+    # the first fleet, the server's life, the three plans on the trained
+    # dictionaries)
     by_path = {"headline": launches, "fast": {"K1": 0, "K2": 0,
                                               "K3": c_launches},
                "exact": exact_launches, "streaming": stream_launches,
-               "fleet": fleet_launches, "server": server_launches}
+               "fleet": fleet_launches, "server": server_launches,
+               "trained": trained_launches}
 
     def entry(key, name, source, replaces, per_batch, err, timing, **more):
         ms, plain, bnd, by = timing
@@ -1408,7 +1801,8 @@ def main() -> int:
         entry("K3", "mu_h_solve_columns",
               "se_snmf_nat_tpu_torch/csrc/mu_h_cols.cu", C_REPLACES,
               k3_per_batch, c_errs[25],
-              c_times[25])]}))      # cap 25: the fast plan's own launch
+              c_times[25],          # cap 25: the fast plan's own launch
+              exemplar_r1000=sub(k3_exemplar))]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,10 @@ Every function takes any number of leading batch dimensions: ``(..., T, L)``
 frames and ``(..., T, F)`` spectra.  The transforms are plain matrix
 products or ``torch.fft`` calls; on the card they run in full f32
 (``device.full_f32``).
+
+``stft_batch_train`` (the training path's framing, NumPy float64) is the
+port's own copy of the reference's function, held equal to it by
+tests/test_torch_io.py.
 """
 
 from __future__ import annotations
@@ -223,3 +227,48 @@ def overlap_add(frames: torch.Tensor, frameshift: int) -> torch.Tensor:
     for c in range(ratio):
         out[..., c: c + t, :] += chunks[..., :, c, :]
     return out.reshape(*lead, -1)[..., :total]
+
+
+# ---------------------------------------------------------------------------
+# Offline/training STFT (stft_fft.m semantics — different framing/DC rules)
+# ---------------------------------------------------------------------------
+
+def stft_batch_train(s: np.ndarray, framelength: int, frameshift: int,
+                     fftlength: int, dc_bin: int, win: np.ndarray,
+                     preemph: float) -> tuple[np.ndarray, np.ndarray]:
+    """Training-path STFT matching stft_fft.m exactly (NumPy, float64).
+
+    Differences vs the streaming analysis: frames start at sample 0 with no
+    zero-prepend; iteration stops while start < len(s) - fftlength (tail
+    truncation, stft_fft.m:21); magnitude is |Y| (pre-pow); DC bins are set
+    to 1e-6 (not zeroed+floored); output allocated for floor(len/shift)
+    frames so unproduced trailing columns remain all-zero (callers drop them
+    via any(TF_mag,1) — run_basis_train.m:61).
+    """
+    s = np.asarray(s, dtype=np.float64).reshape(-1)
+    n_alloc = len(s) // frameshift
+    n_bins = fftlength // 2 + 1
+    mag = np.zeros((n_bins, n_alloc))
+    phase = np.zeros((n_bins, n_alloc))
+    starts = []
+    pos = 0
+    # MATLAB: while size_crnt < length(s) - fftlen with 1-based size_crnt,
+    # i.e. 0-based start < len - fftlen - 1.
+    while pos < len(s) - fftlength - 1:
+        starts.append(pos)
+        pos += frameshift
+    if starts:
+        idx = np.asarray(starts)[:, None] + np.arange(framelength)[None, :]
+        frames = s[idx]
+        if preemph != 0.0:
+            shifted = np.concatenate(
+                [np.zeros((len(starts), 1)), frames[:, :-1]], axis=1)
+            frames = frames - preemph * shifted
+        frames = frames * win[None, :]
+        spec = np.fft.rfft(frames, n=fftlength, axis=1)
+        m = np.abs(spec)
+        ph = np.angle(spec)
+        m[:, :dc_bin] = 1e-6
+        mag[:, : len(starts)] = m.T
+        phase[:, : len(starts)] = ph.T
+    return mag, phase

@@ -5,6 +5,8 @@ needed.  Every generator draws from ``numpy.random.default_rng(seed)``.
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 
 FS = 16000
@@ -61,13 +63,39 @@ def noise(n_samples: int, seed: int = 0, level: float = 1000.0) -> np.ndarray:
     return np.random.default_rng(seed).standard_normal(n_samples) * level
 
 
+def clean_utterance(n_samples: int, seed: int = 0,
+                    lead_silence: float = 0.25) -> np.ndarray:
+    """The clean signal of ``noisy_utterance``: speech-like after a silent
+    lead-in (float64, the reference of the quality scores)."""
+    s = speechlike(n_samples, seed=seed)
+    s[: int(lead_silence * n_samples)] = 0.0
+    return s
+
+
 def noisy_utterance(n_samples: int, seed: int = 0,
                     lead_silence: float = 0.25,
                     noise_level: float = 1500.0) -> np.ndarray:
     """Speech-like signal behind a noise-only lead-in, plus noise throughout,
     rounded to integers in int16 range (as a wav read gives).  The
     noise-only stretch is what fires the adaptation triggers."""
-    s = speechlike(n_samples, seed=seed)
-    s[: int(lead_silence * n_samples)] = 0.0
+    s = clean_utterance(n_samples, seed=seed, lead_silence=lead_silence)
     x = s + noise(n_samples, seed=seed + 1000, level=noise_level)
     return np.clip(np.round(x), -32768, 32767)
+
+
+def write_wav_dir(path, kind: str, n_clips: int, seconds: float,
+                  seed: int = 0, fs: int = FS):
+    """A directory of ``n_clips`` int16 mono wavs of ``seconds`` each, one
+    seed a clip from ``seed`` on: ``kind`` "speech" (``speechlike``) or
+    "noise" (``noise``): training data for the dictionaries.  Returns the
+    directory as a ``Path``."""
+    # imported here: the wav module's package loads torch, this one does not
+    from se_snmf_nat_tpu_torch.io.wavio import write_wav_int16
+    make = {"speech": speechlike, "noise": noise}[kind]
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    n = int(seconds * fs)
+    for i in range(n_clips):
+        x = np.clip(np.round(make(n, seed=seed + i)), -32768, 32767)
+        write_wav_int16(path / f"{kind}_{i:03d}.wav", x.astype(np.int16), fs)
+    return path

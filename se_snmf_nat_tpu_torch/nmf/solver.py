@@ -179,6 +179,28 @@ def snmf_solve(v: torch.Tensor, w0: torch.Tensor, h0: torch.Tensor,
     a lane with False runs zero trips and returns its entry-normalised
     factors.  Each lane stops at its own relative-cost test; ``iters`` is
     per lane."""
+    return _solve(v, w0, h0, w_mask, h_mask, params, update_w, update_h,
+                  active, need_stats, trace=False)[0]
+
+
+def snmf_solve_traced(v: torch.Tensor, w0: torch.Tensor, h0: torch.Tensor,
+                      w_mask: torch.Tensor, h_mask: torch.Tensor,
+                      params: SnmfParams, update_w: bool = True,
+                      update_h: bool = True
+                      ) -> tuple[SnmfResult, dict[str, torch.Tensor]]:
+    """``snmf_solve`` with the reference's per-trip objective trace
+    (sparse_nmf.m:260-270 ``objective.div/cost``), a diagnostic surface:
+    the cost it records every trip is the pass the fixed-trip solves skip.
+
+    Returns ``(result, {"div": (..., max_iter), "cost": (..., max_iter)})``
+    with a lane's entries past its ``iters`` zero.  The update sequence is
+    ``snmf_solve``'s, so the final factors are the same."""
+    return _solve(v, w0, h0, w_mask, h_mask, params, update_w, update_h,
+                  None, True, trace=True)
+
+
+def _solve(v, w0, h0, w_mask, h_mask, params, update_w, update_h, active,
+           need_stats, trace):
     flr, sp, beta = params.flr, params.sparsity, params.beta
     v = torch.clamp(v, min=flr)
     w, wn = normalize_columns(w0)
@@ -192,7 +214,10 @@ def snmf_solve(v: torch.Tensor, w0: torch.Tensor, h0: torch.Tensor,
         run = run & active.to(torch.bool)
     it = torch.zeros(lane_shape, dtype=torch.int32, device=dev)
     last = torch.full(lane_shape, float("inf"), dtype=v.dtype, device=dev)
-    for _ in range(params.max_iter):
+    hist = ({k: torch.zeros(lane_shape + (params.max_iter,), dtype=v.dtype,
+                            device=dev) for k in ("div", "cost")}
+            if trace else None)
+    for k in range(params.max_iter):
         if not bool(run.any()):
             break
         w2, h2, lamb2 = w, h, lamb
@@ -206,11 +231,15 @@ def snmf_solve(v: torch.Tensor, w0: torch.Tensor, h0: torch.Tensor,
         w = torch.where(sel, w2, w)
         h = torch.where(sel, h2, h)
         lamb = torch.where(sel, lamb2, lamb)
-        if params.conv_eps > 0:
-            cost = (torch.sum(_div_terms(v, lamb2, beta), dim=(-2, -1))
-                    + torch.sum(sp * h2, dim=(-2, -1)))
+        if params.conv_eps > 0 or trace:
+            div = torch.sum(_div_terms(v, lamb2, beta), dim=(-2, -1))
+            cost = div + torch.sum(sp * h2, dim=(-2, -1))
+            if trace:
+                hist["div"][..., k] = torch.where(run, div, 0.0)
+                hist["cost"][..., k] = torch.where(run, cost, 0.0)
             rel = torch.abs(cost - last) / torch.abs(last)
-            done = (it > 0) & (rel < params.conv_eps)
+            done = ((it > 0) & (rel < params.conv_eps)
+                    if params.conv_eps > 0 else torch.zeros_like(run))
             last = torch.where(run, cost, last)
             it = it + run.to(torch.int32)
             run = run & ~done
@@ -218,8 +247,8 @@ def snmf_solve(v: torch.Tensor, w0: torch.Tensor, h0: torch.Tensor,
             it = it + run.to(torch.int32)
     if not need_stats:
         zero = torch.zeros(lane_shape, dtype=v.dtype, device=dev)
-        return SnmfResult(w=w, h=h, iters=it, div=zero, cost=zero)
+        return SnmfResult(w=w, h=h, iters=it, div=zero, cost=zero), hist
     div = torch.sum(_div_terms(v, lamb, beta), dim=(-2, -1))
     cost = (last if params.conv_eps > 0
             else div + torch.sum(sp * h, dim=(-2, -1)))
-    return SnmfResult(w=w, h=h, iters=it, div=div, cost=cost)
+    return SnmfResult(w=w, h=h, iters=it, div=div, cost=cost), hist

@@ -40,6 +40,16 @@ def _run(code: str, cwd=ROOT, env_extra=None):
     "se_snmf_nat_tpu_torch.nmf.solver",
     "se_snmf_nat_tpu_torch.stream.serving",
     "se_snmf_nat_tpu_torch.runtime.server",
+    "se_snmf_nat_tpu_torch.io",
+    "se_snmf_nat_tpu_torch.io.basis",
+    "se_snmf_nat_tpu_torch.dsp.splice",
+    "se_snmf_nat_tpu_torch.dsp.smoothing",
+    "se_snmf_nat_tpu_torch.dsp.resample",
+    "se_snmf_nat_tpu_torch.train",
+    "se_snmf_nat_tpu_torch.train.basis",
+    "se_snmf_nat_tpu_torch.train.dnmf",
+    "se_snmf_nat_tpu_torch.nmf.mdi",
+    "se_snmf_nat_tpu_torch.metrics",
 ])
 def test_port_imports_without_jax(module):
     """Importing a port module loads neither ``jax`` nor any module of the
@@ -111,6 +121,11 @@ def _default_device_cases():
     from se_snmf_nat_tpu_torch.stream.serving import (
         MultiStreamSession, ShardedFleet)
     from se_snmf_nat_tpu_torch.stream.streaming import StreamingSession
+    from se_snmf_nat_tpu_torch.nmf import SnmfParams, snmf_mdi_solve
+    from se_snmf_nat_tpu_torch.train.basis import (
+        train_event_basis, train_event_basis_cached)
+    from se_snmf_nat_tpu_torch.train.dnmf import dnmf_refit
+    from se_snmf_nat_tpu_torch.train.features import training_features
     cfg, fixed = default_config(), preset("snmf")
     bx, bd = fixtures.synthetic_bases(cfg.signal.n_bins, cfg.sep.r_x,
                                       cfg.sep.r_d)
@@ -138,6 +153,17 @@ def _default_device_cases():
         "bases_to_torch": lambda: bases_to_torch(*b4),
         "state_from_jax": lambda: state_from_jax(
             type(cpu_state)(*(np.asarray(f) for f in cpu_state))),
+        "train_event_basis": lambda: train_event_basis(
+            training_features(fixtures.noise(16000), cfg), cfg, 4),
+        "train_event_basis_cached": lambda: train_event_basis_cached(
+            ROOT / "no_such_dir", ROOT / "no_such_dir", cfg, 4),
+        "dnmf_refit": lambda: dnmf_refit(
+            fixtures.speechlike(16000), fixtures.noise(16000),
+            np.concatenate([bx, bd], axis=1), cfg),
+        "snmf_mdi_solve": lambda: snmf_mdi_solve(
+            bx @ bd.T, np.ones((bx.shape[0],) * 2), bx, bd.T,
+            np.ones(cfg.sep.r_x, bool), np.ones(cfg.sep.r_x, bool),
+            SnmfParams()),
     }
 
 
@@ -146,7 +172,9 @@ def _default_device_cases():
     "make_block_adaptive_run", "make_block_step", "init_engine_state",
     "build_headline_enhancer", "bases_to_torch", "state_from_jax",
     "SnmfEnhancer_exact", "Engine", "make_engine", "StreamingSession",
-    "MultiStreamSession", "ShardedFleet", "EnhanceServer"])
+    "MultiStreamSession", "ShardedFleet", "EnhanceServer",
+    "train_event_basis", "train_event_basis_cached", "dnmf_refit",
+    "snmf_mdi_solve"])
 def test_entry_point_without_device_raises_without_a_card(entry):
     """``device=None`` means the card: without one every entry point raises
     and none carries on on the CPU."""

@@ -183,3 +183,60 @@ def test_non_kl_betas_solve_matches_jax(beta, update_w, update_h):
         assert _rel(getattr(got, name), getattr(ref, name)) < 1e-10, name
     assert int(got.iters) == int(ref.iters)
     assert int(got.iters) > 1
+
+
+@pytest.mark.parametrize("update_w,update_h", [(True, True), (False, True)])
+@pytest.mark.parametrize("conv_eps,max_iter", [(0.0, 12), (1e-3, 200)])
+def test_solve_traced_matches_jax_and_snmf_solve(conv_eps, max_iter,
+                                                 update_w, update_h):
+    """``snmf_solve_traced``: the per-trip div and cost histories within
+    1e-9 of the JAX package's (zeros past the trips run, trip counts
+    equal), and the final factors those of ``snmf_solve`` bit for bit."""
+    v, w0, h0 = _problem(7, f=64, r=10, n=30)
+    r = w0.shape[1]
+    p = dict(sparsity=5.0, max_iter=max_iter, conv_eps=conv_eps)
+    ref, ref_hist = jsol.snmf_solve_traced(
+        jnp.asarray(v), jnp.asarray(w0), jnp.asarray(h0),
+        jnp.ones(r, bool), jnp.ones(r, bool), jsol.SnmfParams(**p),
+        update_w=update_w, update_h=update_h)
+    args = (torch.as_tensor(v), torch.as_tensor(w0), torch.as_tensor(h0),
+            torch.ones(r, dtype=torch.bool), torch.ones(r, dtype=torch.bool),
+            tsol.SnmfParams(**p))
+    got, hist = tsol.snmf_solve_traced(*args, update_w=update_w,
+                                       update_h=update_h)
+    plain = tsol.snmf_solve(*args, update_w=update_w, update_h=update_h)
+    n_run = int(got.iters)
+    assert n_run == int(ref.iters) == int(plain.iters)
+    if conv_eps > 0:
+        assert 1 < n_run < max_iter
+    for key in ("div", "cost"):
+        assert hist[key].shape == (max_iter,)
+        assert _rel(hist[key], ref_hist[key]) < 1e-9, key
+        assert bool((hist[key][n_run:] == 0).all())
+        assert bool((hist[key][:n_run] > 0).all())
+    for name in ("w", "h", "div", "cost"):
+        assert torch.equal(getattr(got, name), getattr(plain, name)), name
+        assert _rel(getattr(got, name), getattr(ref, name)) < 1e-9, name
+    if conv_eps > 0:      # the result's cost is the last trip's
+        assert float(hist["cost"][n_run - 1]) == float(got.cost)
+
+
+def test_solve_traced_lanes_stop_on_their_own():
+    """Lanes in one call: each lane's history is the one it has alone."""
+    rng = np.random.default_rng(8)
+    v = rng.gamma(0.8, 2.0, (3, 48, 20)) + 0.05
+    w0 = rng.random((3, 48, 6)) + 0.05
+    h0 = rng.random((3, 6, 20))
+    m = torch.ones(6, dtype=torch.bool)
+    p = tsol.SnmfParams(sparsity=1.0, max_iter=150, conv_eps=1e-3)
+    got, hist = tsol.snmf_solve_traced(torch.as_tensor(v),
+                                       torch.as_tensor(w0),
+                                       torch.as_tensor(h0), m, m, p)
+    assert len(set(got.iters.tolist())) > 1
+    for b in range(3):
+        one, one_hist = tsol.snmf_solve_traced(
+            torch.as_tensor(v[b]), torch.as_tensor(w0[b]),
+            torch.as_tensor(h0[b]), m, m, p)
+        assert int(one.iters) == int(got.iters[b])
+        assert _rel(hist["cost"][b], one_hist["cost"]) < 1e-12
+        assert _rel(got.w[b], one.w) < 1e-12
