@@ -102,7 +102,33 @@ before printing any result.
     with the port's float64 CPU run on 2 lanes, and the mean segmental SNR
     and STOI of input and output against the clean signal (the segmental
     SNR must rise, as the CPU tests show the reference's does);
-11. a JSON line of the kernels (``launches``: the sum over the paths'
+11. baselines: the three baseline enhancers at their published
+    parameters on the phase-4 utterances, K1-K3 counted from zero around
+    the phase and required to stay at 0.  First, whether cuFFT and the
+    halving sum give a row the same bits alone as in a batch (and
+    ``torch.sum``, which need not), and the host's time a launch.
+    ``OmlsaEnhancer`` (M=512, hop
+    128): ``enhance_batch`` at B=16 (int16 of the expected length, finite,
+    RMS below the input's), lane 0 int16 identical to ``enhance``,
+    correlation >= 0.99 with the port's float64 CPU run on 2 lanes, card
+    float64 within 1e-9 of CPU float64 with int16 identical, warm batches
+    at B=16 (the better of two calls) and B=64 (one call) in audio-s/s and
+    host ms a frame, and a profile of one B=64 call (kernels a frame,
+    device busy share; the raw CUDA events are counted, not parsed).
+    ``MmseEnhancer`` (ni=160, nf=320): the same for tracker ``martin`` with
+    ``lg=1``, then ``martin`` with ``lg=0`` and ``mmse`` timed at B=16
+    only; each also streamed in chunks of 1,600 samples with
+    ``return_state=True``, int16 identical to the one-shot ``enhance``.
+    BNMF at ``BnmfParams()``: the speech model trained on 30 s of clean
+    speech (seconds, the 100 trips' device ms); the noise init timed
+    alone; online ``enhance`` of two utterances (the second profiled) and
+    supervised mode with a noise signal (int16, finite, mean segmental SNR
+    above the input's); ``BnmfStreamingSession`` at ``block_frames`` 1 and
+    8 in 160-sample hops, int16 identical to ``enhance``; card float64
+    within 1e-9 of CPU float64; ms a frame, the refits that fired, and the
+    phase's seconds.  Every eager launch costs the host ~11 us there, so
+    the phase makes as few full-size calls as its checks need;
+12. a JSON line of the kernels (``launches``: the sum over the paths'
     first runs, each counted from zero, also given by path), the card's
     name and power limit, and the result line ``{"ok": true, "device":
     {...}}`` last.
@@ -1641,6 +1667,358 @@ def check_training(mu, dev, card):
     return launches, k3
 
 
+BASE_WARM = {N_UTT: 2, 64: 1}   # warm calls a batch size, the best kept
+BNMF_TRAIN_S = 30.0         # seconds of clean speech the BNMF model learns
+BNMF_SEEDS = {"speech": 900, "noise": 901}    # seeds no utterance uses
+MS_CHUNK = 1600             # samples a chunk of the chunked MMSE stream
+FS = 16000
+
+
+def _rel(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@contextlib.contextmanager
+def one_cpu_thread():
+    """The CPU references run their small tensors on one thread (the pool's
+    hand-offs cost more than the work)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def device_profile(fn):
+    """(fn's result, wall s, device ms, kernels, device busy share) of one
+    call, from the raw CUDA events of ``torch.profiler`` (the ~10^5-10^6
+    events of a baseline's call take minutes to parse into function
+    events, so they are only counted and summed)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n_kernels, dev_ns = 0, 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            n_kernels += not ev.name().startswith(("Memcpy", "Memset"))
+            dev_ns += ev.duration_ns()
+    return out, wall, dev_ns / 1e6, n_kernels, dev_ns / 1e9 / wall
+
+
+def check_lane_invariance(dev, card):
+    """Phase 11, first line: whether a row's result depends on the number
+    of rows on the card — cuFFT's transforms at the baselines' sizes (n=512
+    and 320: 64 rows against the first row alone and the first 8) and a
+    sum over 257 bins by ``torch.sum`` and by the halving ``tree_sum`` the
+    baselines' steps use (each of 64 rows alone against the batch) — and
+    the host's time a launch (10,000 eager multiplications of a (16, 257)
+    tensor)."""
+    from se_snmf_nat_tpu_torch.utils.special import tree_sum
+    gen = torch.Generator().manual_seed(0)
+    same = {}
+    for n in (512, 320):
+        x = (torch.randn(64, 40, n, generator=gen) * 1e3).to(dev)
+        spec = torch.fft.rfft(x, dim=-1)
+        back = torch.fft.irfft(spec, n=n, dim=-1)
+        same[f"rfft {n}"] = all(
+            torch.equal(torch.fft.rfft(x[:b], dim=-1), spec[:b])
+            for b in (1, 8)) and torch.equal(
+                torch.fft.rfft(x[0, :1], dim=-1), spec[0, :1])
+        same[f"irfft {n}"] = all(
+            torch.equal(torch.fft.irfft(spec[:b], n=n, dim=-1), back[:b])
+            for b in (1, 8))
+    y = torch.rand(64, 257, generator=gen).to(dev)
+    alone = torch.cat([y[i: i + 1].sum(-1) for i in range(64)])
+    n_diff = int((alone != y.sum(-1)).sum())
+    gap = (alone - y.sum(-1)).abs().max().item()
+    same["torch.sum"] = n_diff == 0
+    same["tree_sum"] = torch.equal(
+        torch.cat([tree_sum(y[i: i + 1]) for i in range(64)]), tree_sum(y))
+    a = torch.rand(16, 257, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10000):
+        a = a * 1.0000001
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) * 100
+    print(f"baselines lanes: a row's bits alone and in a batch of 64: "
+          f"{', '.join(f'{k} {v}' for k, v in same.items())} (torch.sum: "
+          f"{n_diff} of 64 rows alone differ from the batch, by up to "
+          f"{gap:.3e}); host "
+          f"{us:.2f} us a launch ({card})")
+    if not all(v for k, v in same.items() if k != "torch.sum"):
+        raise AssertionError(f"a row's result depends on the batch: {same}")
+
+
+def hold_batch_baseline(name, make, dev, card, xs, n_out, n_frames,
+                        sizes=None, chunked=False):
+    """Phase 11 for an enhancer with ``enhance`` and ``enhance_batch``
+    (OM-LSA, MMSE; both write int16 with ``matlab_int16_write``):
+    ``enhance_batch`` at B=16 on the card (int16 of the expected length,
+    RMS below the input's), ``enhance`` of lane 0 (finite, its int16 that
+    of lane 0), two lanes against the float64 CPU run (correlation >=
+    0.99), float64 on the card against it (1e-9, int16 identical); warm
+    batches at each of ``sizes`` (``BASE_WARM`` calls, the best kept) and
+    a profile of one call at the largest; with ``chunked``, ``enhance`` in
+    chunks of ``MS_CHUNK`` samples against the one-shot output."""
+    from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_int16_write
+    enh = make(torch.float32, dev)
+    t0 = time.perf_counter()
+    ys = enh.enhance_batch(xs)
+    first_s = time.perf_counter() - t0
+    if not all(y.dtype == np.int16 and y.shape == (n_out,) for y in ys):
+        raise AssertionError(f"{name}: outputs are not int16[{n_out}]")
+    y0 = enh.enhance(xs[0], quantize=False)
+    if not np.all(np.isfinite(y0)):
+        raise AssertionError(f"{name}: non-finite waveform")
+    if not np.array_equal(ys[0], matlab_int16_write(y0)):
+        raise AssertionError(f"{name}: lane 0 of the batch differs from "
+                             f"enhance() of its utterance")
+    rms_in = float(np.sqrt(np.mean(np.square(xs))))
+    rms_out = float(np.sqrt(np.mean(np.square(np.stack(ys).astype(float)))))
+    if not rms_out < rms_in:
+        raise AssertionError(f"{name}: output RMS {rms_out} not below input "
+                             f"{rms_in}")
+    t0 = time.perf_counter()
+    with one_cpu_thread():
+        want = make(torch.float64, "cpu").enhance_batch(xs[:2],
+                                                        quantize=False)
+    cpu_s = time.perf_counter() - t0
+    corrs = [float(np.corrcoef(matlab_int16_write(w).astype(float),
+                               y.astype(float))[0, 1])
+             for w, y in zip(want, ys)]
+    if min(corrs) < 0.99:
+        raise AssertionError(f"{name}: card-to-CPU correlation {min(corrs)}")
+    got64 = make(torch.float64, dev).enhance_batch(xs[:1],
+                                                   quantize=False)[0]
+    rel = _rel(got64, want[0])
+    same64 = np.array_equal(matlab_int16_write(got64),
+                            matlab_int16_write(want[0]))
+    if not rel <= 1e-9 or not same64:
+        raise AssertionError(f"{name}: float64 on the card {rel:.3e} from "
+                             f"the CPU, int16 identical {same64}")
+    line = (f"baselines {name}: enhance_batch B={len(xs)} first call "
+            f"{first_s:.3f} s, {len(ys)} x int16[{n_out}] ({n_frames} "
+            f"frames), finite, rms in {rms_in:.1f} -> out {rms_out:.1f}, "
+            f"lane 0 = enhance(), card f32 vs CPU f64 ({cpu_s:.1f} s) corr "
+            f"{', '.join(f'{c:.6f}' for c in corrs)}, card f64 vs CPU f64 "
+            f"{rel:.3e} int16 identical")
+    if chunked:
+        st, parts = None, []
+        for i in range(0, len(xs[0]), MS_CHUNK):
+            y, st = enh.enhance(xs[0][i: i + MS_CHUNK], state=st,
+                                return_state=True)
+            parts.append(y)
+        got = np.concatenate(parts)
+        if not np.array_equal(got, matlab_int16_write(y0)[: len(got)]):
+            raise AssertionError(f"{name}: chunked enhance differs from "
+                                 f"one-shot")
+        line += (f"; {len(parts)} chunks of {MS_CHUNK} samples = one-shot "
+                 f"(int16 identical, {len(got)} of {n_out} samples, the "
+                 f"rest held as the tail)")
+    print(line)
+    audio_s = N_SAMPLES / FS
+    out = []
+    for b in sizes or (N_UTT, 64):
+        batch = [fixtures_noisy(100 + i) for i in range(b)]
+        times = []
+        for _ in range(BASE_WARM[b]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enh.enhance_batch(batch, micro_batch=None)
+            times.append(time.perf_counter() - t0)
+        best = min(times)
+        out.append(f"B={b} best {best:.4f} s of "
+                   f"{[round(x, 4) for x in times]}, "
+                   f"{b * audio_s / best:.1f} audio-s/s, "
+                   f"{best / n_frames * 1e3:.3f} host ms a frame")
+    _, wall, dev_ms, n_k, busy = device_profile(
+        lambda: enh.enhance_batch(batch, micro_batch=None))
+    print(f"baselines {name} times: {'; '.join(out)}; profile B={b}: wall "
+          f"{wall:.4f} s, device {dev_ms:.2f} ms, kernels {n_k} "
+          f"({n_k / n_frames:.1f} a frame), device busy {busy:.1%} ({card})")
+
+
+def fixtures_noisy(seed: int) -> np.ndarray:
+    from se_snmf_nat_tpu_torch import fixtures
+    return fixtures.noisy_utterance(N_SAMPLES, seed=seed)
+
+
+def check_bnmf(dev, card):
+    """Phase 11, BNMF at ``BnmfParams()``: the speech model trained on
+    ``BNMF_TRAIN_S`` of clean speech on the card (seconds, and the trips'
+    device ms); the noise init timed alone; online ``enhance`` of two
+    utterances (the second profiled) and supervised mode with a noise
+    signal (int16, finite, mean segmental SNR against the clean signal
+    above the input's); ``BnmfStreamingSession`` at ``block_frames`` 1 and
+    8 in 160-sample hops against the offline output (int16 identical);
+    float64 on the card against the CPU (1e-9, int16 identical); ms and
+    kernels a frame and the refits that fired."""
+    from se_snmf_nat_tpu_torch import fixtures, metrics
+    from se_snmf_nat_tpu_torch.bnmf import (
+        BnmfEnhancer, BnmfModel, BnmfParams, BnmfStreamingSession,
+        GammaPost, init_train, spectrogram, train_speech_model, vb_train)
+    from se_snmf_nat_tpu_torch.bnmf.enhance import _safe_std
+    from se_snmf_nat_tpu_torch.io.wavio import enhanced_quantize
+    p = BnmfParams()
+    speech = fixtures.clean_utterance(int(BNMF_TRAIN_S * FS),
+                                      seed=BNMF_SEEDS["speech"],
+                                      lead_silence=0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, _ = train_speech_model(speech, p, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    spect = spectrogram(speech / _safe_std(speech), p)
+    w0, h0, b0w, b0h = init_train(spect, p.k_speech)
+    args = [torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in (spect, w0, h0)]
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    w_again, _, _ = vb_train(*args, b0w, b0h, n_iter=p.train_iters)
+    stop.record()
+    torch.cuda.synchronize()
+    trips_ms = start.elapsed_time(stop)
+    if not torch.equal(w_again.shape, model.w.shape):
+        raise AssertionError("bnmf: training twice gave different bases")
+    print(f"baselines bnmf training: {BNMF_TRAIN_S:.0f} s of clean speech "
+          f"({spect.shape[1]} frames, F={spect.shape[0]}, K={p.k_speech}) in "
+          f"{train_s:.3f} s host, the {p.train_iters} trips "
+          f"{trips_ms:.1f} device ms ({card})")
+
+    enh = BnmfEnhancer(model, params=p, device=dev)
+    xs = [fixtures.noisy_utterance(N_SAMPLES, seed=i) for i in range(2)]
+    cleans = [fixtures.clean_utterance(N_SAMPLES, seed=i) for i in range(2)]
+    n_frames = N_SAMPLES // p.ulen - 1
+    n_out = (n_frames + 1) * p.ulen
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enh.init_online_carry(xs[0])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    refits0 = enh.refits
+    t0 = time.perf_counter()
+    floats = [enh.enhance(xs[0], quantize=False)]
+    first_s = time.perf_counter() - t0
+    y1, wall, dev_ms, n_k, busy = device_profile(
+        lambda: enh.enhance(xs[1], quantize=False))
+    floats.append(y1)
+    refits = (enh.refits - refits0) / len(xs)
+    noise = fixtures.noise(int(BNMF_TRAIN_S * FS), seed=BNMF_SEEDS["noise"],
+                           level=1500.0)
+    sup = BnmfEnhancer(model, noise=noise, method="supervised", params=p,
+                       device=dev)
+    t0 = time.perf_counter()
+    sup_floats = [sup.enhance(x, quantize=False) for x in xs]
+    sup_s = (time.perf_counter() - t0) / len(xs)
+
+    def snr(ys_):
+        return float(np.mean([metrics.segmental_snr(c, y, FS)
+                              for c, y in zip(cleans, ys_)]))
+
+    snr_in = snr(xs)
+    outs = {}
+    for mode, fl in (("online", floats), ("supervised", sup_floats)):
+        if not all(np.all(np.isfinite(y)) for y in fl):
+            raise AssertionError(f"bnmf {mode}: non-finite waveform")
+        outs[mode] = [enhanced_quantize(y) for y in fl]
+        if not all(y.dtype == np.int16 and y.shape == (n_out,)
+                   for y in outs[mode]):
+            raise AssertionError(f"bnmf {mode}: not int16[{n_out}]")
+        if not snr(outs[mode]) > snr_in:
+            raise AssertionError(f"bnmf {mode}: segmental SNR "
+                                 f"{snr(outs[mode])} not above the input's "
+                                 f"{snr_in}")
+    streams = []
+    for bf in (1, 8):
+        sess = BnmfStreamingSession(enh, block_frames=bf)
+        ms, parts = [], []
+        for i in range(0, N_SAMPLES, 160):
+            t0 = time.perf_counter()
+            parts.append(sess.push(xs[0][i: i + 160]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        parts.append(sess.flush())
+        if not np.array_equal(np.concatenate(parts), outs["online"][0]):
+            raise AssertionError(f"bnmf stream block_frames={bf} differs "
+                                 f"from the offline enhance()")
+        ms = np.asarray(ms)
+        streams.append(f"block_frames={bf} push median "
+                       f"{np.median(ms):.3f} ms p99 "
+                       f"{np.percentile(ms, 99):.3f} max {ms.max():.3f}")
+
+    def on(device, dtype):
+        m = BnmfModel(GammaPost(model.w.shape.to(device, dtype),
+                                model.w.scale.to(device, dtype)),
+                      model.u0.to(device, dtype))
+        return BnmfEnhancer(m, params=p, dtype=dtype, device=device)
+
+    t0 = time.perf_counter()
+    with one_cpu_thread():
+        want = on("cpu", torch.float64).enhance(xs[0], quantize=False)
+    cpu_s = time.perf_counter() - t0
+    got = on(dev, torch.float64).enhance(xs[0], quantize=False)
+    rel = _rel(got, want)
+    same = np.array_equal(enhanced_quantize(got), enhanced_quantize(want))
+    if not rel <= 1e-9 or not same:
+        raise AssertionError(f"bnmf: float64 on the card {rel:.3e} from the "
+                             f"CPU, int16 identical {same}")
+    print(f"baselines bnmf: online and supervised {len(xs)} x "
+          f"int16[{n_out}] ({n_frames} frames), finite, mean segmental SNR "
+          f"{snr_in:.3f} -> {snr(outs['online']):.3f} dB online, "
+          f"{snr(outs['supervised']):.3f} dB supervised; streams identical "
+          f"to enhance(), {'; '.join(streams)} (a hop is 10 ms of audio); "
+          f"card f64 vs CPU f64 {rel:.3e} int16 identical (CPU {cpu_s:.1f} "
+          f"s)")
+    print(f"baselines bnmf times: noise init ({p.noise_init_iters} trips, "
+          f"K={p.k_noise}) {init_s:.3f} s; online enhance {first_s:.3f} s "
+          f"with the init, {(first_s - init_s) / n_frames * 1e3:.3f} ms a "
+          f"frame without it, refits a run {refits:.1f}; supervised "
+          f"{sup_s:.3f} s; profile of the second: wall {wall:.4f} s, device "
+          f"{dev_ms:.2f} ms, kernels {n_k} (with the init's), device busy "
+          f"{busy:.1%} ({card})")
+
+
+def check_baselines(mu, dev, card):
+    """Phase 11: the three baseline enhancers at their published parameters
+    on the phase-4 utterances; K1-K3 must not be launched.  Returns the
+    kernels' launches over the phase."""
+    from se_snmf_nat_tpu_torch.enhance.imcra import OmlsaEnhancer
+    from se_snmf_nat_tpu_torch.enhance.ms import MmseEnhancer
+    from se_snmf_nat_tpu_torch.enhance.ms_params import MsParams
+    t_phase = time.perf_counter()
+    reset_launches(mu)
+    check_lane_invariance(dev, card)
+    xs = [fixtures_noisy(i) for i in range(N_UTT)]
+    om = OmlsaEnhancer(device="cpu")
+    t_om = max((N_SAMPLES - om.p.mo) // om.p.mno, 0)
+    hold_batch_baseline(
+        "omlsa", lambda dt, d: OmlsaEnhancer(dtype=dt, device=d), dev, card,
+        xs, t_om * om.p.mno + om.p.mo, t_om)
+    ms = MmseEnhancer(device="cpu")
+    nr = (N_SAMPLES - ms.d.nf + ms.d.ni) // ms.d.ni
+    n_ms = ms.d.ni * (nr + 1)
+    for tracker, lg in (("martin", 1), ("martin", 0), ("mmse", 1)):
+        hold_batch_baseline(
+            f"mmse tracker={tracker} lg={lg}",
+            lambda dt, d: MmseEnhancer(params=MsParams(lg=lg), dtype=dt,
+                                       tracker=tracker, device=d),
+            dev, card, xs, n_ms, nr, chunked=True,
+            sizes=None if (tracker, lg) == ("martin", 1) else (N_UTT,))
+    check_bnmf(dev, card)
+    launches = read_launches(mu)
+    print(f"baselines phase: {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"the baselines launch no MU kernel: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU path here",
@@ -1762,15 +2140,18 @@ def main() -> int:
     # 10. dictionary training, and the trained dictionaries through K1-K3
     trained_launches, k3_exemplar = check_training(mu, dev, card)
 
-    # 11. results: each path's launches were counted from zero around its
+    # 11. the baseline enhancers (no MU kernel)
+    baseline_launches = check_baselines(mu, dev, card)
+
+    # 12. results: each path's launches were counted from zero around its
     # own first run (headline, fast plan, exact plan, the hop-by-hop stream,
     # the first fleet, the server's life, the three plans on the trained
-    # dictionaries)
+    # dictionaries, the baselines' whole phase)
     by_path = {"headline": launches, "fast": {"K1": 0, "K2": 0,
                                               "K3": c_launches},
                "exact": exact_launches, "streaming": stream_launches,
                "fleet": fleet_launches, "server": server_launches,
-               "trained": trained_launches}
+               "trained": trained_launches, "baselines": baseline_launches}
 
     def entry(key, name, source, replaces, per_batch, err, timing, **more):
         ms, plain, bnd, by = timing

@@ -6,7 +6,8 @@ its paths so each module has a counterpart there, and keeps its own copy of
 the host-only (NumPy) modules it needs: ``config``, ``headline``'s
 ``HEADLINE_PLAN``, ``utils.matlab_compat``, ``io.wavio``, ``io.basis``,
 ``dsp.splice``, ``dsp.resample``, the training data, features and k-means
-of ``train`` and ``metrics``.  Nothing here
+of ``train``, ``metrics``, and the baselines' parameters
+(``enhance.imcra_params``, ``enhance.ms_params``).  Nothing here
 imports JAX or the reference package.  Entry points run on the card unless
 the caller names a device (``device="cpu"`` for the CPU).
 
@@ -21,7 +22,12 @@ Layer map of the ported slices:
                 training solve), missing-data imputation
   kernels/    — hand-written CUDA MU-solve kernels (K1, K2 for the block
                 plan, K3 for the fast plan) + their plain versions
-  enhance/    — engine state, block-sparsity statistic Q
+  enhance/    — engine state, block-sparsity statistic Q; the OM-LSA/IMCRA
+                and MMSE baseline enhancers (``imcra``, ``ms``)
+  bnmf/       — the Bayesian-NMF baseline: VB core, online and supervised
+                enhancer, streaming session
+  utils/      — MATLAB numerics; the gains' special functions (E1,
+                digamma, Bessel series) on tensors
   stream/     — block-adaptive run, fast run and the ``SnmfEnhancer``
                 facade (``block_adapt > 0``: block plan; ``block_adapt=0``
                 on a fixed-dictionary config: fast plan)
@@ -30,8 +36,8 @@ Layer map of the ported slices:
   io/         — wav files with the reference's quantisation, dictionary
                 checkpoints (.npz, .mat)
   metrics.py  — objective quality scores (segmental SNR, STOI, ...)
-  convert.py  — config, dictionaries and state carried across from the JAX
-                side
+  convert.py  — config, dictionaries, state and BNMF speech models carried
+                across from the JAX side
   fixtures.py — seeded synthetic bases and signals (NumPy only)
 """
 

@@ -1,5 +1,5 @@
-"""Carry the JAX side's configuration, dictionaries and engine state across
-to the port.
+"""Carry the JAX side's configuration, dictionaries, engine state and
+trained BNMF speech models across to the port.
 
 The reference package's config is a tree of dataclasses, its dictionaries
 are NumPy arrays and its state is an ``EngineState`` NamedTuple of arrays;
@@ -64,3 +64,18 @@ def state_to_numpy(state: EngineState) -> EngineState:
     """The inverse of ``state_from_jax``: every field as a NumPy array
     (``EngineState(**s._asdict())`` rebuilds the reference's state)."""
     return EngineState(*(f.detach().cpu().numpy() for f in state))
+
+
+def bnmf_model_from_jax(model, device=None, dtype=torch.float32):
+    """The port's ``BnmfModel`` from a reference one (its basis posterior's
+    ``shape`` and ``scale`` and its ``u0``, as NumPy arrays or anything
+    ``np.asarray`` takes), so both packages enhance with the same trained
+    speech model."""
+    from se_snmf_nat_tpu_torch.bnmf import BnmfModel, GammaPost
+    device = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return BnmfModel(GammaPost(t(model.w.shape), t(model.w.scale)),
+                     t(model.u0))

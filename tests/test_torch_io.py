@@ -47,6 +47,21 @@ COPIES = [
     ("train/features.py", None),
     ("train/kmeans.py", None),
     ("metrics.py", None),
+    ("bnmf/vb.py", ("init_train",)),
+    ("bnmf/enhance.py", ("_EPS", "_FLR", "_WADA_SNRS", "_WADA_G",
+                         "_WADA_POLY", "BnmfParams", "_safe_std", "_window",
+                         "_frame", "spectrogram")),
+]
+
+# copies kept under a path of the port's own: (reference module, port
+# module, the names copied)
+MOVED_COPIES = [
+    ("oracle/imcra_np.py", "enhance/imcra_params.py",
+     ("_iround", "matlab_hanning", "matlab_hamming", "ImcraParams",
+      "imcra_windows")),
+    ("oracle/ms_np.py", "enhance/ms_params.py",
+     ("_iround", "MsParams", "MsDerived", "_MH_TABLE", "mhvals",
+      "ms_derived", "MsgParams")),
 ]
 
 
@@ -59,9 +74,10 @@ class _NoImports(ast.NodeTransformer):
 
 
 def _statements(path: Path, names):
-    """{name: ``ast.dump``} of the module's top-level statements (functions
-    and classes by name, the rest by position) without the module docstring
-    and without any import line at any depth."""
+    """{name: ``ast.dump``} of the module's top-level statements (functions,
+    classes and assignments to one name by that name, the rest by position)
+    without the module docstring and without any import line at any
+    depth."""
     tree = _NoImports().visit(ast.parse(path.read_text()))
     body = tree.body
     if (body and isinstance(body[0], ast.Expr)
@@ -70,6 +86,9 @@ def _statements(path: Path, names):
     out = {}
     for i, node in enumerate(body):
         key = getattr(node, "name", f"<statement {i}>")
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and isinstance(node.targets[0], ast.Name)):
+            key = node.targets[0].id
         out[key] = ast.dump(node)
     if names is None:
         return out
@@ -83,6 +102,15 @@ def test_copy_equals_reference_outside_imports(rel, names):
     ref = _statements(ROOT / "se_snmf_nat_tpu" / rel, names)
     port = _statements(ROOT / "se_snmf_nat_tpu_torch" / rel, names)
     assert ref, rel
+    assert port == ref
+
+
+@pytest.mark.parametrize("ref_rel,port_rel,names", MOVED_COPIES,
+                         ids=[c[1] for c in MOVED_COPIES])
+def test_moved_copy_equals_reference_outside_imports(ref_rel, port_rel,
+                                                     names):
+    ref = _statements(ROOT / "se_snmf_nat_tpu" / ref_rel, names)
+    port = _statements(ROOT / "se_snmf_nat_tpu_torch" / port_rel, names)
     assert port == ref
 
 

@@ -50,6 +50,16 @@ def _run(code: str, cwd=ROOT, env_extra=None):
     "se_snmf_nat_tpu_torch.train.dnmf",
     "se_snmf_nat_tpu_torch.nmf.mdi",
     "se_snmf_nat_tpu_torch.metrics",
+    "se_snmf_nat_tpu_torch.utils.special",
+    "se_snmf_nat_tpu_torch.enhance",
+    "se_snmf_nat_tpu_torch.enhance.imcra_params",
+    "se_snmf_nat_tpu_torch.enhance.imcra",
+    "se_snmf_nat_tpu_torch.enhance.ms_params",
+    "se_snmf_nat_tpu_torch.enhance.ms",
+    "se_snmf_nat_tpu_torch.bnmf",
+    "se_snmf_nat_tpu_torch.bnmf.vb",
+    "se_snmf_nat_tpu_torch.bnmf.enhance",
+    "se_snmf_nat_tpu_torch.bnmf.streaming",
 ])
 def test_port_imports_without_jax(module):
     """Importing a port module loads neither ``jax`` nor any module of the
@@ -122,6 +132,13 @@ def _default_device_cases():
         MultiStreamSession, ShardedFleet)
     from se_snmf_nat_tpu_torch.stream.streaming import StreamingSession
     from se_snmf_nat_tpu_torch.nmf import SnmfParams, snmf_mdi_solve
+    from se_snmf_nat_tpu_torch.bnmf import (
+        BnmfEnhancer, BnmfParams, train_speech_model)
+    from se_snmf_nat_tpu_torch.convert import bnmf_model_from_jax
+    from se_snmf_nat_tpu_torch.enhance.imcra import (
+        OmlsaEnhancer, init_imcra_state)
+    from se_snmf_nat_tpu_torch.enhance.imcra_params import ImcraParams
+    from se_snmf_nat_tpu_torch.enhance.ms import MmseEnhancer
     from se_snmf_nat_tpu_torch.train.basis import (
         train_event_basis, train_event_basis_cached)
     from se_snmf_nat_tpu_torch.train.dnmf import dnmf_refit
@@ -131,6 +148,11 @@ def _default_device_cases():
                                       cfg.sep.r_d)
     b4 = (bx, bd, bx, bd)
     cpu_state = init_engine_state(cfg, bd, cfg.signal.n_bins, device="cpu")
+
+    def bnmf_model():
+        return train_speech_model(fixtures.speechlike(16000),
+                                  BnmfParams(k_speech=4, train_iters=2),
+                                  device="cpu")[0]
     return {
         "SnmfEnhancer_block": lambda: SnmfEnhancer(cfg, *b4, block_adapt=8),
         "SnmfEnhancer_fast": lambda: SnmfEnhancer(fixed, *b4),
@@ -164,6 +186,18 @@ def _default_device_cases():
             bx @ bd.T, np.ones((bx.shape[0],) * 2), bx, bd.T,
             np.ones(cfg.sep.r_x, bool), np.ones(cfg.sep.r_x, bool),
             SnmfParams()),
+        "OmlsaEnhancer": lambda: OmlsaEnhancer(),
+        "init_imcra_state": lambda: init_imcra_state(ImcraParams()),
+        "MmseEnhancer": lambda: MmseEnhancer(),
+        "MmseEnhancer_mmse": lambda: MmseEnhancer(tracker="mmse"),
+        "BnmfEnhancer": lambda: BnmfEnhancer(
+            speech=fixtures.speechlike(16000),
+            params=BnmfParams(k_speech=4, train_iters=2)),
+        "BnmfEnhancer_model": lambda: BnmfEnhancer(bnmf_model()),
+        "train_speech_model": lambda: train_speech_model(
+            fixtures.speechlike(16000),
+            BnmfParams(k_speech=4, train_iters=2)),
+        "bnmf_model_from_jax": lambda: bnmf_model_from_jax(bnmf_model()),
     }
 
 
@@ -174,7 +208,9 @@ def _default_device_cases():
     "SnmfEnhancer_exact", "Engine", "make_engine", "StreamingSession",
     "MultiStreamSession", "ShardedFleet", "EnhanceServer",
     "train_event_basis", "train_event_basis_cached", "dnmf_refit",
-    "snmf_mdi_solve"])
+    "snmf_mdi_solve", "OmlsaEnhancer", "init_imcra_state", "MmseEnhancer",
+    "MmseEnhancer_mmse", "BnmfEnhancer", "BnmfEnhancer_model",
+    "train_speech_model", "bnmf_model_from_jax"])
 def test_entry_point_without_device_raises_without_a_card(entry):
     """``device=None`` means the card: without one every entry point raises
     and none carries on on the CPU."""
