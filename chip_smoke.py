@@ -128,7 +128,33 @@ before printing any result.
     within 1e-9 of CPU float64; ms a frame, the refits that fired, and the
     phase's seconds.  Every eager launch costs the host ~11 us there, so
     the phase makes as few full-size calls as its checks need;
-12. a JSON line of the kernels (``launches``: the sum over the paths'
+12. multichannel: the PMWF beamformer and NTF at their deployment shape
+    (``synth_mixture(n_ch=6)``, the CHiME-4 array; 3.43 s utterances, 347
+    frames, F=513; ``PmwfParams()``), K1-K3 counted from zero around the
+    phase and required to stay at 0: cuFFT's rows at n=1024 alone and in a
+    batch, and the host's time a launch; ``PmwfEnhancer.enhance`` (int16
+    of the expected length, finite, segmental SNR above the best input
+    channel's, card float64 within 1e-9 of CPU float64 with int16
+    identical, host seconds); the per-frame plan ``make_pmwf_batch_run``
+    at B=8 (lanes 0 and 7 bit-identical to single-lane runs, correlation
+    >= 0.99 with the CPU float64 run on 2 lanes, card float64 against it,
+    warm audio-s/s, host ms a frame, kernels a frame and device busy share
+    from the raw events of one profiled call); the whole-utterance plan
+    ``make_pmwf_batch_run_fast`` at B=8 and 32 (float64 int16 identical to
+    the per-frame plan, float32 correlation >= 0.9999 with it, finite, warm
+    audio-s/s, CUDA-event ms, peak allocated memory);
+    ``PmwfStreamingSession`` at ``block_frames=8`` in 160-sample hops
+    (int16 identical to the one-shot run, host ms a push and of the pushes
+    that complete a block against its 80 ms; a stream checkpointed with
+    ``save_pmwf_state`` after 40 frames, loaded and resumed, identical to
+    the uninterrupted one); six coherent channels in float32 (finite, not
+    zero, one frame's covariance positive semidefinite to 1e-6 of its
+    trace); ``ntf_solve`` at C=6, N=513, M=256, K=100, 50 trips (card
+    float64 within 1e-9 of the CPU's, trips equal; float32 ms a trip) and
+    ``NtfStreamingSession.push_blocks`` over 64 blocks (= 64 ``push_block``
+    calls, blocks/s); the native IO library built and its wav round trip
+    equal to the Python path's; the phase's seconds;
+13. a JSON line of the kernels (``launches``: the sum over the paths'
     first runs, each counted from zero, also given by path), the card's
     name and power limit, and the result line ``{"ok": true, "device":
     {...}}`` last.
@@ -2019,6 +2045,411 @@ def check_baselines(mu, dev, card):
     return launches
 
 
+MC_CH = 6                   # the CHiME-4 array of synth_mixture(n_ch=6)
+MC_LANES = (8, 32)          # lanes of the batch plans
+MC_BLOCK = 8                # frames a session block: 80 ms of audio
+MC_SPLIT = 40               # frames before the checkpointed interruption
+NTF_SHAPE = dict(c=6, n=513, m=256, k=100)
+NTF_TRIPS = 50
+NTF_ONLINE = dict(m=16, blocks=64, inner=4)
+
+
+def mc_utterance(seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """(6, N_SAMPLES) mixture and its clean source, a seed a lane."""
+    from se_snmf_nat_tpu_torch.multichannel.fixture import synth_mixture
+    return synth_mixture(n=N_SAMPLES, n_ch=MC_CH, seed=seed)
+
+
+def check_fft_rows(dev, card):
+    """Phase 12, first line: whether cuFFT's rfft and irfft at n=1024 (the
+    multichannel STFT, 640-sample frames) give a row the same bits alone
+    as in a batch of 32 x 6 x 40 rows (float32 takes another algorithm
+    from 2,048 rows on), and that the port's fixed-shape calls
+    (``pmwf.fixed_rows``) do; the host's time a launch."""
+    from se_snmf_nat_tpu_torch.multichannel.pmwf import fixed_rows
+    gen = torch.Generator().manual_seed(1)
+    x = (torch.randn(32, MC_CH, 40, 640, generator=gen) * 1e3).to(dev)
+    same = {}
+    for name, fn in (("cuFFT", lambda f, v: f(v, n=1024, dim=-1)),
+                     ("fixed_rows", lambda f, v: fixed_rows(f, v, 1024))):
+        spec = fn(torch.fft.rfft, x)
+        back = fn(torch.fft.irfft, spec)
+        for what, f, inp, full in (("rfft", torch.fft.rfft, x, spec),
+                                   ("irfft", torch.fft.irfft, spec, back)):
+            same[f"{name} {what}"] = all(
+                torch.equal(fn(f, inp[i]), full[i])
+                for i in (np.s_[:1], np.s_[0, :1], np.s_[5, 2, 7]))
+    a = torch.rand(8, MC_CH, 513, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10000):
+        a = a * 1.0000001
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) * 100
+    rows = ", ".join(f"{k} {v}" for k, v in same.items())
+    print(f"multichannel fft rows: a row's bits alone and in a batch of "
+          f"32 x {MC_CH} x 40 rows (n=1024, float32): {rows}; host "
+          f"{us:.2f} us a launch ({card})")
+    if not (same["fixed_rows rfft"] and same["fixed_rows irfft"]):
+        raise AssertionError(f"the port's transforms depend on the batch: "
+                             f"{same}")
+
+
+def check_pmwf_offline(dev, card):
+    """Phase 12: ``PmwfEnhancer.enhance`` on one 6-channel utterance."""
+    from se_snmf_nat_tpu_torch.multichannel import PmwfEnhancer
+    from se_snmf_nat_tpu_torch.multichannel.fixture import segsnr_vs_source
+    from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_int16_write
+    x, src = mc_utterance(0)
+    enh = PmwfEnhancer(device=dev)
+    enh.enhance(x)                                         # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = enh.enhance(x, quantize=False)
+    host_s = time.perf_counter() - t0
+    n_out = (N_SAMPLES // 160 + 1) * 160
+    y16 = matlab_int16_write(y)
+    if y16.shape != (MC_CH, n_out) or not np.all(np.isfinite(y)):
+        raise AssertionError(f"offline PMWF: {y16.shape}, finite "
+                             f"{np.all(np.isfinite(y))}")
+    seg_in = max(segsnr_vs_source(x[j], src) for j in range(MC_CH))
+    seg_out = segsnr_vs_source(y[0], src)
+    if not seg_out > seg_in:
+        raise AssertionError(f"offline PMWF segSNR {seg_out} <= {seg_in}")
+    got64 = PmwfEnhancer(dtype=torch.float64, device=dev).enhance(
+        x, quantize=False)
+    want64 = PmwfEnhancer(dtype=torch.float64, device="cpu").enhance(
+        x, quantize=False)
+    rel = _rel(got64, want64)
+    same = np.array_equal(matlab_int16_write(got64),
+                          matlab_int16_write(want64))
+    if not rel <= 1e-9 or not same:
+        raise AssertionError(f"offline PMWF float64 on the card {rel:.3e} "
+                             f"from the CPU, int16 identical {same}")
+    print(f"multichannel offline: PmwfEnhancer.enhance C={MC_CH} "
+          f"int16[{MC_CH}, {n_out}], finite, segSNR best input "
+          f"{seg_in:.3f} -> {seg_out:.3f} dB, card f64 vs CPU f64 "
+          f"{rel:.3e} int16 identical, warm host {host_s:.4f} s ({card})")
+
+
+def check_pmwf_per_frame(dev, card):
+    """Phase 12: the per-frame plan, ``make_pmwf_batch_run`` at B=8, held
+    on lanes 0-1 to the CPU's float64 run (the whole-utterance plan, which
+    gives the per-frame plan's bits, as the CPU tests show, in a fraction
+    of the CPU's time).  Returns its float64 card output on lanes 0-1 (the
+    int16 reference of the whole-utterance plan)."""
+    from se_snmf_nat_tpu_torch.config import default_config
+    from se_snmf_nat_tpu_torch.multichannel import (
+        PmwfParams, make_pmwf_batch_run, make_pmwf_batch_run_fast,
+        make_pmwf_streaming_run, pmwf_stream_init)
+    from se_snmf_nat_tpu_torch.multichannel.streaming import (
+        batch_stream_state)
+    from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_int16_write
+    cfg, p = default_config(), PmwfParams()
+    b = MC_LANES[0]
+    frames = mc_frames(b)
+    n_frames = frames.shape[2]
+    cpu64 = make_pmwf_batch_run_fast(cfg, p, torch.float64, "cpu")(
+        frames[:2], batch_stream_state(pmwf_stream_init(
+            p, MC_CH, cfg.signal.n_bins, torch.complex128, "cpu"), 2))[0]
+    cpu64 = cpu64.numpy()
+    st0 = pmwf_stream_init(p, MC_CH, cfg.signal.n_bins, device=dev)
+    run = make_pmwf_batch_run(cfg, p, device=dev)
+    t0 = time.perf_counter()
+    ys, _ = run(frames, batch_stream_state(st0, b))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    single = make_pmwf_streaming_run(cfg, p, device=dev)
+    lanes = {i: torch.equal(ys[i], single(frames[i], st0)[0])
+             for i in (0, b - 1)}
+    finite = bool(torch.isfinite(ys).all())
+    if not all(lanes.values()) or not finite:
+        raise AssertionError(f"per-frame plan: lanes alone = in the batch "
+                             f"{lanes}, finite {finite}")
+    run64 = make_pmwf_batch_run(cfg, p, torch.float64, dev)
+    st64 = pmwf_stream_init(p, MC_CH, cfg.signal.n_bins, torch.complex128,
+                            dev)
+    y64, _ = run64(frames[:2], batch_stream_state(st64, 2))
+    y64 = y64.cpu().numpy()
+    rel = _rel(y64, cpu64)
+    same = np.array_equal(matlab_int16_write(y64), matlab_int16_write(cpu64))
+    y32 = ys[:2].cpu().numpy()
+    corrs = [float(np.corrcoef(a.ravel(), w.ravel())[0, 1])
+             for a, w in zip(y32, cpu64)]
+    if not rel <= 1e-9 or not same or min(corrs) < 0.99:
+        raise AssertionError(f"per-frame plan: card f64 {rel:.3e} from CPU "
+                             f"f64, int16 identical {same}, f32 corr {corrs}")
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(frames, batch_stream_state(st0, b))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    best = min(times)
+    _, wall, dev_ms, n_k, busy = device_profile(
+        lambda: run(frames, batch_stream_state(st0, b)))
+    audio_s = N_SAMPLES / FS
+    print(f"multichannel per-frame plan B={b}: first call {first_s:.3f} s, "
+          f"lanes 0 and {b - 1} = single-lane runs, finite, card f32 vs CPU "
+          f"f64 corr {', '.join(f'{c:.6f}' for c in corrs)}, card f64 vs "
+          f"CPU f64 {rel:.3e} int16 identical; warm best {best:.4f} s of "
+          f"{[round(t, 4) for t in times]}, {b * audio_s / best:.1f} "
+          f"audio-s/s, {best / n_frames * 1e3:.3f} host ms a frame; profile: "
+          f"wall {wall:.4f} s, device {dev_ms:.2f} ms, kernels {n_k} "
+          f"({n_k / n_frames:.1f} a frame), device busy {busy:.1%} ({card})")
+    return y64
+
+
+def mc_frames(b: int) -> np.ndarray:
+    """(B, 6, T, 640) streaming frames of B utterances (seeds 0..B-1)."""
+    from se_snmf_nat_tpu_torch.config import default_config
+    from se_snmf_nat_tpu_torch.multichannel.pmwf import frames_of
+    cfg = default_config()
+    return np.stack([frames_of(mc_utterance(i)[0], cfg) for i in range(b)])
+
+
+def check_pmwf_whole(dev, card, y64_frame):
+    """Phase 12: the whole-utterance plan, ``make_pmwf_batch_run_fast``, at
+    B=8 and 32: float64 int16 identical to the per-frame plan on two
+    lanes, float32 correlation >= 0.9999 with it, finite; warm audio-s/s,
+    device ms (CUDA events) and the peak of allocated memory."""
+    from se_snmf_nat_tpu_torch.config import default_config
+    from se_snmf_nat_tpu_torch.multichannel import (
+        PmwfParams, make_pmwf_batch_run_fast, pmwf_stream_init)
+    from se_snmf_nat_tpu_torch.multichannel.streaming import (
+        batch_stream_state)
+    from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_int16_write
+    cfg, p = default_config(), PmwfParams()
+    all_frames = mc_frames(max(MC_LANES))
+    n_bins = cfg.signal.n_bins
+    run64 = make_pmwf_batch_run_fast(cfg, p, torch.float64, dev)
+    st64 = pmwf_stream_init(p, MC_CH, n_bins, torch.complex128, dev)
+    g64, _ = run64(all_frames[:2], batch_stream_state(st64, 2))
+    g64 = g64.cpu().numpy()
+    same = np.array_equal(matlab_int16_write(g64),
+                          matlab_int16_write(y64_frame))
+    if not same:
+        raise AssertionError("whole-utterance plan float64 int16 differs "
+                             "from the per-frame plan's")
+    run = make_pmwf_batch_run_fast(cfg, p, device=dev)
+    st0 = pmwf_stream_init(p, MC_CH, n_bins, device=dev)
+    audio_s = N_SAMPLES / FS
+    parts = []
+    for b in MC_LANES:
+        frames = all_frames[:b]
+        states = batch_stream_state(st0, b)
+        torch.cuda.reset_peak_memory_stats()
+        ys, _ = run(frames, states)
+        corrs = [float(np.corrcoef(a.ravel(), w.ravel())[0, 1])
+                 for a, w in zip(ys[:2].cpu().numpy(), g64)]
+        finite = bool(torch.isfinite(ys).all())
+        if not finite or min(corrs) < 0.9999:
+            raise AssertionError(f"whole-utterance plan B={b}: finite "
+                                 f"{finite}, f32 corr {corrs}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del ys
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(frames, states)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        best = min(times)
+        dev_ms = cuda_ms(lambda: run(frames, states), reps=2)
+        parts.append(f"B={b}: f32 corr with f64 "
+                     f"{', '.join(f'{c:.7f}' for c in corrs)}, finite, warm "
+                     f"best {best:.4f} s of {[round(t, 4) for t in times]}, "
+                     f"{b * audio_s / best:.1f} audio-s/s, CUDA events "
+                     f"{dev_ms:.2f} ms a call, peak allocated {peak:.2f} GiB")
+    print(f"multichannel whole-utterance plan: f64 int16 = per-frame plan "
+          f"on 2 lanes; {'; '.join(parts)} ({card})")
+
+
+def check_pmwf_session(dev, card):
+    """Phase 12: ``PmwfStreamingSession`` in 160-sample hops against the
+    one-shot run; a checkpointed interruption resumed."""
+    import tempfile
+    from pathlib import Path
+    from se_snmf_nat_tpu_torch.config import default_config
+    from se_snmf_nat_tpu_torch.multichannel import (
+        PmwfParams, PmwfStreamingSession, make_pmwf_streaming_run,
+        pmwf_stream_init, pmwf_streaming_enhance)
+    from se_snmf_nat_tpu_torch.multichannel.pmwf import frames_of
+    from se_snmf_nat_tpu_torch.runtime.checkpoint import (
+        load_pmwf_state, save_pmwf_state)
+    x, _ = mc_utterance(0)
+    sess = PmwfStreamingSession(n_ch=MC_CH, block_frames=MC_BLOCK,
+                                device=dev)
+    ms, block_ms, parts = [], [], []
+    for n, i in enumerate(range(0, x.shape[1], 160), start=1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts.append(sess.push(x[:, i: i + 160]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if n % MC_BLOCK == 0:                # this hop completed a block
+            block_ms.append(ms[-1])
+    got = np.concatenate(parts + [sess.flush()], axis=1)
+    if not np.array_equal(got, pmwf_streaming_enhance(x, device=dev)):
+        raise AssertionError("the session's int16 differs from the one-shot "
+                             "run's")
+    cfg, p = default_config(), PmwfParams()
+    fr = frames_of(x, cfg)
+    run = make_pmwf_streaming_run(cfg, p, device=dev)
+    st0 = pmwf_stream_init(p, MC_CH, cfg.signal.n_bins, device=dev)
+    y_full, st_full = run(fr, st0)
+    _, st_a = run(fr[:, :MC_SPLIT], st0)
+    with tempfile.TemporaryDirectory() as d:
+        save_pmwf_state(Path(d) / "pmwf.npz", st_a)
+        st_r = load_pmwf_state(Path(d) / "pmwf.npz", device=dev)
+    y_b, st_b = run(fr[:, MC_SPLIT:], st_r)
+    seam = 640 - 160
+    resumed = (all(torch.equal(a, b) for a, b in zip(st_b, st_full))
+               and torch.equal(y_b[:, seam:],
+                               y_full[:, MC_SPLIT * 160 + seam:]))
+    if not resumed:
+        raise AssertionError("the stream resumed from its checkpoint "
+                             "differs from the uninterrupted one")
+    print(f"multichannel session: block_frames={MC_BLOCK}, {len(ms)} pushes "
+          f"of 160 samples, int16 = one-shot; host ms a push median "
+          f"{np.median(ms):.3f}, p99 {np.percentile(ms, 99):.3f}; pushes "
+          f"that complete a block ({len(block_ms)}) median "
+          f"{np.median(block_ms):.3f}, p99 {np.percentile(block_ms, 99):.3f}, "
+          f"max {max(block_ms):.3f} against the block's "
+          f"{MC_BLOCK * 10} ms; checkpoint at frame {MC_SPLIT} "
+          f"(save_pmwf_state, load_pmwf_state) resumed = uninterrupted "
+          f"({card})")
+
+
+def check_pmwf_coherent(dev, card):
+    """Phase 12: six copies of one signal 7 samples apart through the
+    session in float32: finite, not all zero, and one frame's window
+    covariance positive semidefinite to rounding."""
+    from se_snmf_nat_tpu_torch.multichannel import PmwfStreamingSession
+    from se_snmf_nat_tpu_torch.multichannel.streaming import window_cov
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(9000) * 3000.0
+    xs = np.stack([np.roll(x, 7 * c) for c in range(MC_CH)])
+    sess = PmwfStreamingSession(n_ch=MC_CH, block_frames=MC_BLOCK,
+                                device=dev)
+    outs = [sess.push(xs[:, i: i + 1600], quantize=False)
+            for i in range(0, 9000, 1600)]
+    r = window_cov(sess.state.y_win, sess.params.m_nbr).to(
+        torch.complex128)                               # (F, C, C)
+    eig = torch.linalg.eigvalsh(r)
+    trace = torch.diagonal(r, dim1=-2, dim2=-1).real.sum(-1)
+    worst = float((eig[:, 0] / trace).min())
+    y = np.concatenate([o for o in outs if o.size]
+                       + [sess.flush(quantize=False)], axis=1)
+    ok = y.size and np.isfinite(y).all() and float(np.abs(y).max()) > 1.0
+    print(f"multichannel coherent: {MC_CH} copies 7 samples apart, float32 "
+          f"session output finite {bool(np.isfinite(y).all())}, max "
+          f"|y| {float(np.abs(y).max()):.1f}; one frame's window covariance "
+          f"min eigenvalue / trace {worst:.3e} over {r.shape[0]} bins "
+          f"({card})")
+    if not ok or worst < -1e-6:
+        raise AssertionError("coherent channels: non-finite, zero or "
+                             "indefinite")
+
+
+def check_ntf(dev, card):
+    """Phase 12: ``ntf_solve`` at C=6, N=513, M=256, K=100 (card float64
+    against CPU float64, trips equal; float32 device ms a trip), then
+    ``NtfStreamingSession.push_blocks`` over 64 blocks against 64
+    ``push_block`` calls, with blocks/s."""
+    from se_snmf_nat_tpu_torch.multichannel import (
+        NtfStreamingSession, ntf_solve)
+    from se_snmf_nat_tpu_torch.multichannel.ntf import default_c_init
+    sh = NTF_SHAPE
+    rng = np.random.default_rng(12)
+    b = rng.random((sh["n"], sh["k"])) + 0.05
+    s = np.einsum("ck,nk,mk->cnm", rng.random((sh["c"], sh["k"])) + 0.05,
+                  b, rng.random((sh["m"], sh["k"])) + 0.05)
+    c0, a0 = default_c_init(sh["c"], sh["k"]), np.ones((sh["m"], sh["k"]))
+    kw = dict(max_iter=NTF_TRIPS)
+    card64 = ntf_solve(s, b, c0, a0, device=dev, dtype=torch.float64, **kw)
+    t0 = time.perf_counter()
+    cpu64 = ntf_solve(s, b, c0, a0, device="cpu", dtype=torch.float64, **kw)
+    cpu_s = time.perf_counter() - t0
+    rel = _rel(card64.c.cpu().numpy(), cpu64.c.numpy())
+    if not rel <= 1e-9 or card64.iters != cpu64.iters:
+        raise AssertionError(f"ntf_solve: card f64 {rel:.3e} from CPU f64, "
+                             f"trips {card64.iters} vs {cpu64.iters}")
+    st = [torch.as_tensor(v, dtype=torch.float32, device=dev)
+          for v in (s, b, c0, a0)]
+    trip_ms = cuda_ms(lambda: ntf_solve(
+        *st, device=dev, max_iter=NTF_TRIPS, conv_eps=0.0), reps=3) \
+        / NTF_TRIPS
+    on = NTF_ONLINE
+    blks = rng.random((on["blocks"], sh["c"], sh["n"], on["m"])) + 1e-3
+    s1 = NtfStreamingSession(b, sh["c"], inner_iters=on["inner"], device=dev)
+    one = np.stack([s1.push_block(blk) for blk in blks])
+    s2 = NtfStreamingSession(b, sh["c"], inner_iters=on["inner"], device=dev)
+    blks_dev = torch.as_tensor(blks, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    many = s2.push_blocks(blks_dev)
+    blk_s = time.perf_counter() - t0
+    if not np.array_equal(many, one) or not torch.equal(s1.state.c,
+                                                        s2.state.c):
+        raise AssertionError("push_blocks differs from push_block")
+    print(f"multichannel ntf: ntf_solve C={sh['c']} N={sh['n']} "
+          f"M={sh['m']} K={sh['k']}: card f64 vs CPU f64 ({cpu_s:.1f} s) "
+          f"{rel:.3e}, trips {card64.iters} = {cpu64.iters}; float32 "
+          f"{trip_ms:.3f} device ms a trip (CUDA events, {NTF_TRIPS} trips); "
+          f"push_blocks of {on['blocks']} blocks (M={on['m']}, "
+          f"{on['inner']} inner trips) = {on['blocks']} push_block calls, "
+          f"{on['blocks'] / blk_s:.1f} blocks/s ({card})")
+
+
+def check_native_io(card):
+    """Phase 12: the native IO library builds on the card's host and its
+    wav round trip equals the Python path's."""
+    import tempfile
+    from pathlib import Path
+    from se_snmf_nat_tpu_torch.io import native
+    from se_snmf_nat_tpu_torch.io.wavio import read_wav_int16, write_wav_int16
+    if not native.native_available():
+        raise AssertionError("the native IO library did not build")
+    x = (np.random.default_rng(13).standard_normal((2, 16000))
+         * 9000).astype(np.int16)
+    with tempfile.TemporaryDirectory() as d:
+        native.write_wav_int16(Path(d) / "n.wav", x, FS)
+        write_wav_int16(Path(d) / "p.wav", x, FS)
+        same_bytes = ((Path(d) / "n.wav").read_bytes()
+                      == (Path(d) / "p.wav").read_bytes())
+        got, _ = native.read_wav_int16(Path(d) / "p.wav")
+        want, _ = read_wav_int16(Path(d) / "n.wav")
+    if not same_bytes or not np.array_equal(got, want):
+        raise AssertionError("native wav round trip differs from Python's")
+    print(f"multichannel native io: native_available() True "
+          f"({native._LIB_PATH.relative_to(native._ROOT)}), a 2-channel wav "
+          f"written and read by the library = the Python path's ({card})")
+
+
+def check_multichannel(mu, dev, card):
+    """Phase 12: the multichannel path at its deployment shape; K1-K3 must
+    not be launched.  Returns the kernels' launches over the phase."""
+    t_phase = time.perf_counter()
+    reset_launches(mu)
+    check_fft_rows(dev, card)
+    check_pmwf_offline(dev, card)
+    y64 = check_pmwf_per_frame(dev, card)
+    check_pmwf_whole(dev, card, y64)
+    check_pmwf_session(dev, card)
+    check_pmwf_coherent(dev, card)
+    check_ntf(dev, card)
+    check_native_io(card)
+    launches = read_launches(mu)
+    print(f"multichannel phase: {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"the multichannel path launches no MU kernel: "
+                             f"{launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU path here",
@@ -2143,15 +2574,19 @@ def main() -> int:
     # 11. the baseline enhancers (no MU kernel)
     baseline_launches = check_baselines(mu, dev, card)
 
-    # 12. results: each path's launches were counted from zero around its
+    # 12. the multichannel path (no MU kernel)
+    multichannel_launches = check_multichannel(mu, dev, card)
+
+    # 13. results: each path's launches were counted from zero around its
     # own first run (headline, fast plan, exact plan, the hop-by-hop stream,
     # the first fleet, the server's life, the three plans on the trained
-    # dictionaries, the baselines' whole phase)
+    # dictionaries, the baselines' and the multichannel path's whole phase)
     by_path = {"headline": launches, "fast": {"K1": 0, "K2": 0,
                                               "K3": c_launches},
                "exact": exact_launches, "streaming": stream_launches,
                "fleet": fleet_launches, "server": server_launches,
-               "trained": trained_launches, "baselines": baseline_launches}
+               "trained": trained_launches, "baselines": baseline_launches,
+               "multichannel": multichannel_launches}
 
     def entry(key, name, source, replaces, per_batch, err, timing, **more):
         ms, plain, bnd, by = timing

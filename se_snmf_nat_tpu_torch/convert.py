@@ -1,5 +1,5 @@
-"""Carry the JAX side's configuration, dictionaries, engine state and
-trained BNMF speech models across to the port.
+"""Carry the JAX side's configuration, dictionaries, engine state, trained
+BNMF speech models and multichannel stream states across to the port.
 
 The reference package's config is a tree of dataclasses, its dictionaries
 are NumPy arrays and its state is an ``EngineState`` NamedTuple of arrays;
@@ -79,3 +79,28 @@ def bnmf_model_from_jax(model, device=None, dtype=torch.float32):
 
     return BnmfModel(GammaPost(t(model.w.shape), t(model.w.scale)),
                      t(model.u0))
+
+
+def pmwf_state_from_jax(state, device=None, dtype=torch.float32):
+    """The port's ``PmwfStreamState`` from a reference multichannel stream
+    state (its ``y_win``, ``ycov``, ``ncov`` and ``l`` as NumPy arrays, a
+    leading lane axis or not): the complex fields in the complex dtype of
+    ``dtype``, the frame counter int32, so the stream continues in the
+    port."""
+    from se_snmf_nat_tpu_torch.multichannel.pmwf import complex_dtype
+    from se_snmf_nat_tpu_torch.multichannel.streaming import PmwfStreamState
+    device = resolve_device(device)
+    fields = {}
+    for name in PmwfStreamState._fields:
+        a = np.array(getattr(state, name))
+        fields[name] = torch.as_tensor(
+            a, dtype=complex_dtype(dtype) if a.dtype.kind == "c"
+            else torch.int32, device=device)
+    return PmwfStreamState(**fields)
+
+
+def pmwf_state_to_numpy(state):
+    """The inverse of ``pmwf_state_from_jax``: every field as a NumPy array
+    (``PmwfStreamState(**s._asdict())`` rebuilds the reference's state,
+    whose stream then continues)."""
+    return type(state)(*(f.detach().cpu().numpy() for f in state))

@@ -1,6 +1,7 @@
 """The port's copies of the reference package's NumPy modules (wav and basis
 files, splicing, smoothing, the training STFT, resampling, the training
-data and features, k-means, the quality metrics) agree with the originals:
+data and features, k-means, the quality metrics, the multichannel fixture,
+capture, the plots, the native library's bindings) agree with the originals:
 statement for statement outside the import lines, and bit for bit on seeded
 inputs.  ``tf_dd_torch`` matches ``tf_dd`` to 1e-12 in float64 (the same
 operations in the same order: it is in fact exact)."""
@@ -51,6 +52,14 @@ COPIES = [
     ("bnmf/enhance.py", ("_EPS", "_FLR", "_WADA_SNRS", "_WADA_G",
                          "_WADA_POLY", "BnmfParams", "_safe_std", "_window",
                          "_frame", "spectrogram")),
+    ("multichannel/fixture.py", None),
+    ("multichannel/pmwf.py", ("PmwfParams",)),
+    ("io/capture.py", None),
+    ("utils/visualize.py", None),
+    # the library's paths and its build differ (the port builds under
+    # build/, never into native/); the names of both packages' are left out
+    ("io/native.py", ("-", "_NATIVE_DIR", "_ROOT", "_SOURCE", "_LIB_PATH",
+                      "_build")),
 ]
 
 # copies kept under a path of the port's own: (reference module, port
@@ -289,3 +298,18 @@ def test_srconv_bit_equal(fs_out):
     got = t_resample.srconv(x, FS, fs_out)
     np.testing.assert_array_equal(got, j_resample.srconv(x, FS, fs_out))
     assert got.dtype == np.float64
+
+
+# ---------------------------------------------------------------------------
+# plots (the NumPy half; the PNG writers import matplotlib when called)
+# ---------------------------------------------------------------------------
+
+def test_spectrogram_and_ascii_plot_equal_reference():
+    from se_snmf_nat_tpu.utils import visualize as j_visualize
+    from se_snmf_nat_tpu_torch.utils import visualize as t_visualize
+    x = np.random.default_rng(8).normal(0.0, 3000.0, 5000)
+    for got, want in zip(t_visualize.power_spectrogram_db(x, FS),
+                         j_visualize.power_spectrogram_db(x, FS)):
+        np.testing.assert_array_equal(got, want)
+    assert t_visualize.ascii_spectrogram(x, FS) \
+        == j_visualize.ascii_spectrogram(x, FS)

@@ -60,6 +60,15 @@ def _run(code: str, cwd=ROOT, env_extra=None):
     "se_snmf_nat_tpu_torch.bnmf.vb",
     "se_snmf_nat_tpu_torch.bnmf.enhance",
     "se_snmf_nat_tpu_torch.bnmf.streaming",
+    "se_snmf_nat_tpu_torch.multichannel",
+    "se_snmf_nat_tpu_torch.multichannel.fixture",
+    "se_snmf_nat_tpu_torch.multichannel.ntf",
+    "se_snmf_nat_tpu_torch.multichannel.pmwf",
+    "se_snmf_nat_tpu_torch.multichannel.streaming",
+    "se_snmf_nat_tpu_torch.runtime.checkpoint",
+    "se_snmf_nat_tpu_torch.io.native",
+    "se_snmf_nat_tpu_torch.io.capture",
+    "se_snmf_nat_tpu_torch.utils.visualize",
 ])
 def test_port_imports_without_jax(module):
     """Importing a port module loads neither ``jax`` nor any module of the
@@ -80,7 +89,8 @@ _FORBIDDEN = re.compile(
 
 def _port_sources():
     return sorted((ROOT / "se_snmf_nat_tpu_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_variants.py"]
+        + [ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_variants.py",
+           ROOT / "tools" / "fft_rows.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -143,6 +153,9 @@ def _default_device_cases():
         train_event_basis, train_event_basis_cached)
     from se_snmf_nat_tpu_torch.train.dnmf import dnmf_refit
     from se_snmf_nat_tpu_torch.train.features import training_features
+    from se_snmf_nat_tpu_torch import multichannel as mc
+    from se_snmf_nat_tpu_torch.convert import pmwf_state_from_jax
+    from se_snmf_nat_tpu_torch.runtime import checkpoint
     cfg, fixed = default_config(), preset("snmf")
     bx, bd = fixtures.synthetic_bases(cfg.signal.n_bins, cfg.sep.r_x,
                                       cfg.sep.r_d)
@@ -198,6 +211,31 @@ def _default_device_cases():
             fixtures.speechlike(16000),
             BnmfParams(k_speech=4, train_iters=2)),
         "bnmf_model_from_jax": lambda: bnmf_model_from_jax(bnmf_model()),
+        "PmwfEnhancer": lambda: mc.PmwfEnhancer(),
+        "PmwfStreamingSession": lambda: mc.PmwfStreamingSession(n_ch=2),
+        "pmwf_streaming_enhance": lambda: mc.pmwf_streaming_enhance(
+            np.zeros((2, 1600))),
+        "make_pmwf_streaming_run": lambda: mc.make_pmwf_streaming_run(
+            cfg, mc.PmwfParams()),
+        "make_pmwf_streaming_run_fast":
+            lambda: mc.make_pmwf_streaming_run_fast(cfg, mc.PmwfParams()),
+        "make_pmwf_batch_run": lambda: mc.make_pmwf_batch_run(
+            cfg, mc.PmwfParams()),
+        "make_pmwf_batch_run_fast": lambda: mc.make_pmwf_batch_run_fast(
+            cfg, mc.PmwfParams()),
+        "pmwf_stream_init": lambda: mc.pmwf_stream_init(
+            mc.PmwfParams(), 2, cfg.signal.n_bins),
+        "ntf_solve": lambda: mc.ntf_solve(
+            np.ones((2, 8, 4)), np.ones((8, 3)), np.ones((2, 3)),
+            np.ones((4, 3))),
+        "NtfStreamingSession": lambda: mc.NtfStreamingSession(
+            np.ones((8, 3)), 2),
+        "pmwf_state_from_jax": lambda: pmwf_state_from_jax(
+            mc.pmwf_stream_init(mc.PmwfParams(), 2, 9, device="cpu")),
+        "load_pmwf_state": lambda: checkpoint.load_pmwf_state(
+            ROOT / "no_such_file.npz"),
+        "load_engine_state": lambda: checkpoint.load_engine_state(
+            ROOT / "no_such_file.npz"),
     }
 
 
@@ -210,7 +248,12 @@ def _default_device_cases():
     "train_event_basis", "train_event_basis_cached", "dnmf_refit",
     "snmf_mdi_solve", "OmlsaEnhancer", "init_imcra_state", "MmseEnhancer",
     "MmseEnhancer_mmse", "BnmfEnhancer", "BnmfEnhancer_model",
-    "train_speech_model", "bnmf_model_from_jax"])
+    "train_speech_model", "bnmf_model_from_jax", "PmwfEnhancer",
+    "PmwfStreamingSession", "pmwf_streaming_enhance",
+    "make_pmwf_streaming_run", "make_pmwf_streaming_run_fast",
+    "make_pmwf_batch_run", "make_pmwf_batch_run_fast", "pmwf_stream_init",
+    "ntf_solve", "NtfStreamingSession", "pmwf_state_from_jax",
+    "load_pmwf_state", "load_engine_state"])
 def test_entry_point_without_device_raises_without_a_card(entry):
     """``device=None`` means the card: without one every entry point raises
     and none carries on on the CPU."""
