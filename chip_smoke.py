@@ -154,7 +154,38 @@ before printing any result.
     ``NtfStreamingSession.push_blocks`` over 64 blocks (= 64 ``push_block``
     calls, blocks/s); the native IO library built and its wav round trip
     equal to the Python path's; the phase's seconds;
-13. a JSON line of the kernels (``launches``: the sum over the paths'
+13. the command line (``se_snmf_nat_tpu_torch.cli``) and the directory
+    runner at full width (F=513, R=100 a class, r_a=50, ``default_config()``)
+    on ``fixtures.structured_bases`` saved through ``io.basis.save_basis``,
+    in a temporary directory, each command through ``cli.main`` in this
+    process with the kernels' launches counted from zero around it (the path
+    ``cli``), or as a process of its own where said: ``enhance`` of a
+    directory of 64 utterances of 3.43 s at B=64 with the headline flags
+    (K1, K2, never K3) and with ``--preset snmf`` (K3 only), twice each,
+    every file identical to ``enhance_batch`` of the same files in the
+    runner's chunk order, the command's seconds, the runner's audio-s/s
+    and its stages (wav I/O through ``io.native``) beside the in-process
+    call's; the carry path (8 files, exact plan, ``--state-path``) identical
+    to an in-process loop that carries ``b_d_head`` only, and a second run
+    that skips all 8; ``python -m se_snmf_nat_tpu_torch enhance`` as a
+    process with no ``--device`` (it runs on the card; its output = the
+    in-process run); ``separate``; ``train`` of both classes on 10 wavs of
+    12 s and a second ``train`` that hits the cache; ``dnmf``;
+    ``campaign`` over two targets of 8 files with one basename (unique
+    keys, a B_D_u each); ``demo`` in the modes snmf (``--toggle-every``,
+    both toggles printed), ms, bnmf and pmwf (six channels), each file
+    output identical to the port's session or one-shot run of the same
+    samples, and a stdin ``--pcm-out`` process; ``serve`` as a process (8
+    lanes, ``block_frames=8``; every wait with a time limit, the process
+    killed at the end), one client's stream equal to a
+    ``MultiStreamSession`` run of the same samples; ``grid`` over the full
+    grid (6 noises x 4 SNRs, 3 clips of 2.4 s, rank 100) with ``snmf`` and
+    ``snmf_fixed`` on a speech source written from ``fixtures.speechlike``,
+    then one condition (``tmetro``, 5 dB) with ``imcra``, ``ms`` and
+    ``bnmf``: every algorithm's mean segmental SNR above the noisy
+    input's; ``eval`` of an output against itself; K1, K2 and K3 each
+    launched on the path; the phase's seconds;
+14. a JSON line of the kernels (``launches``: the sum over the paths'
     first runs, each counted from zero, also given by path), the card's
     name and power limit, and the result line ``{"ok": true, "device":
     {...}}`` last.
@@ -168,6 +199,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2450,6 +2482,496 @@ def check_multichannel(mu, dev, card):
     return launches
 
 
+CLI_FILES = 64             # the directory run: B=64 utterances of N_SAMPLES
+CLI_CARRY_FILES = 8        # the carry path's files; each campaign target's
+CLI_TIMEOUT = 300.0        # seconds, on every wait of a phase-13 process
+CLI_SEED = 3000            # the phase's utterances: seeds no other phase uses
+CLI_TRAIN_CLIPS = 10       # wavs a class for `train`, of TRAIN_CLIP_S each
+BNMF_DEMO_SAMPLES = 25600  # 1.6 s: the BNMF demo's utterance
+DEMO_TOGGLE_EVERY = 100    # hops between the snmf demo's adaptation toggles
+GRID_CLIPS = 3             # clips a grid condition, of 2.4 s
+GRID_SPEECH_S = 17.0       # the grid's speech source: 9 s training + clips
+HEADLINE_FLAGS = ["--block-adapt", "88", "--block-iter-cap", "22",
+                  "--block-refit-cap", "22", "--block-fixed-iter",
+                  "--dft-matmul"]
+
+
+def cli_call(mu, argv, total):
+    """``cli.main(argv)`` in this process, its standard output captured.
+    The kernels' launches are counted from zero just before it, read just
+    after and added to ``total`` (the path ``cli``).  Returns (stdout, host
+    s, the call's launches)."""
+    import io
+
+    from se_snmf_nat_tpu_torch import cli
+    out = io.StringIO()
+    reset_launches(mu)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main([str(a) for a in argv])
+    seconds = time.perf_counter() - t0
+    launches = read_launches(mu)
+    for k, v in launches.items():
+        total[k] += v
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} returned {rc}")
+    return out.getvalue(), seconds, launches
+
+
+def cli_process(args, stdin=None):
+    """``python -m se_snmf_nat_tpu_torch <args>`` as a process of its own
+    from the checkout's root, with a time limit; fails on a non-zero exit.
+    Returns (stdout bytes, stderr text, host s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "se_snmf_nat_tpu_torch", *map(str, args)],
+        input=stdin, capture_output=True, timeout=CLI_TIMEOUT,
+        cwd=str(Path(__file__).resolve().parent))
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m se_snmf_nat_tpu_torch {args[0]} "
+                             f"exited {proc.returncode}: "
+                             f"{proc.stderr.decode()[-2000:]}")
+    return proc.stdout, proc.stderr.decode(), time.perf_counter() - t0
+
+
+def last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def same_int16(name, got, want):
+    if got.shape != want.shape or not np.array_equal(got, want):
+        n_d, mx, _ = int16_gap(got[: len(want)], want[: len(got)])
+        raise AssertionError(f"{name}: {got.shape} against {want.shape}, "
+                             f"{n_d} samples differ, max {mx}")
+
+
+def write_int16(path, x, fs=16000):
+    from se_snmf_nat_tpu_torch.io.wavio import write_wav_int16
+    write_wav_int16(path, np.clip(np.rint(x), -32768, 32767)
+                    .astype(np.int16), fs)
+    return path
+
+
+def cli_directory(mu, dev, card, tmp, bases, total):
+    """``enhance`` over a directory of CLI_FILES utterances at B=64: the
+    headline flags (K1, K2, never K3), then ``--preset snmf`` (K3 only);
+    every file identical to ``enhance_batch`` of the same files in the
+    runner's chunk order.  Returns the directory."""
+    from se_snmf_nat_tpu_torch import fixtures
+    from se_snmf_nat_tpu_torch.config import default_config, preset
+    from se_snmf_nat_tpu_torch.io.native import read_wav_int16
+    from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    db = tmp / "db"
+    db.mkdir()
+    for i in range(CLI_FILES):
+        write_int16(db / f"u{i:03d}.wav",
+                    fixtures.noisy_utterance(N_SAMPLES, seed=CLI_SEED + i))
+    # the runner's chunk order: names sorted, then a stable sort by size
+    order = sorted(sorted(db.glob("*.wav")), key=lambda p: p.stat().st_size)
+    xs = [read_wav_int16(f)[0] for f in order]
+    audio_s = CLI_FILES * N_SAMPLES / 16000
+    bx, bd = bases["arrays"]
+    plans = (("headline", HEADLINE_FLAGS, default_config(),
+              dict(block_adapt=88, block_iter_cap=22, block_refit_cap=22,
+                   block_fixed_iter=True, dft_matmul=True), ("K1", "K2")),
+             ("fast", ["--preset", "snmf"], preset("snmf"), {}, ("K3",)))
+    for name, flags, cfg, kw, used in plans:
+        out = tmp / f"out_{name}"
+        runs = []
+        for force in ([], ["--force"]):
+            text, seconds, launches = cli_call(
+                mu, ["enhance", db, "-o", out, *flags, "--batch-size",
+                     CLI_FILES, "--no-carry-state", *bases["args"], *force],
+                total)
+            rep = last_json(text)
+            if rep["processed"] != CLI_FILES:
+                raise AssertionError(f"cli enhance {name}: {rep}")
+            if any((launches[k] > 0) != (k in used) for k in launches):
+                raise AssertionError(f"cli enhance {name}: launches "
+                                     f"{launches}, expected only {used}")
+            runs.append((seconds, rep, launches))
+        enh = SnmfEnhancer(cfg, bx, bd, bx, bd, device=dev, **kw)
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ys = enh.enhance_batch(xs)
+            times.append(time.perf_counter() - t0)
+        for f, y in zip(order, ys):
+            same_int16(f"cli enhance {name} {f.name}",
+                       read_wav_int16(out / f"{f.stem}_enh.wav")[0], y)
+        for k, (seconds, rep, launches) in enumerate(runs):
+            stages = rep["stages"]
+            rate = audio_s / sum(stages.values())
+            print(f"cli enhance {name} run {k + 1}: {CLI_FILES} files of "
+                  f"{N_SAMPLES / 16000:.2f} s at B={CLI_FILES}, the command "
+                  f"{seconds:.3f} s; runner {rate:.1f} audio-s/s "
+                  f"(realtime_factor {rep['realtime_factor']}), "
+                  f"stages {stages}; launches {launches} ({card})")
+        print(f"cli enhance {name}: in-process enhance_batch of the same "
+              f"files in the runner's chunk order, first {times[0]:.4f} s, "
+              f"warm {times[1]:.4f} s ({audio_s / times[1]:.1f} audio-s/s); "
+              f"every file int16 identical ({card})")
+    return db
+
+
+def cli_carry(mu, dev, card, tmp, bases, db, total):
+    """``enhance`` of CLI_CARRY_FILES files on the exact plan with the
+    dictionary carried file to file (``--state-path``); identical to an
+    in-process loop that carries ``b_d_head`` only; a second run skips
+    every file; one file through ``python -m se_snmf_nat_tpu_torch`` with no
+    ``--device`` equals the in-process run; ``separate`` on it.  Returns
+    (the carry directory, the exact-plan enhancer)."""
+    from se_snmf_nat_tpu_torch.config import default_config
+    from se_snmf_nat_tpu_torch.io.native import read_wav_int16
+    from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    db8 = tmp / "db8"
+    db8.mkdir()
+    files = sorted(db.glob("*.wav"))[:CLI_CARRY_FILES]
+    for f in files:
+        (db8 / f.name).write_bytes(f.read_bytes())
+    out, state_path = tmp / "out_carry", tmp / "B_D_u.npz"
+    argv = ["enhance", db8, "-o", out, "--state-path", state_path,
+            *bases["args"]]
+    text, seconds, launches = cli_call(mu, argv, total)
+    if last_json(text)["processed"] != CLI_CARRY_FILES or launches["K3"] \
+            or not launches["K1"] or not launches["K2"]:
+        raise AssertionError(f"cli carry: {text.strip()[-300:]}, {launches}")
+    bx, bd = bases["arrays"]
+    enh = SnmfEnhancer(default_config(), bx, bd, bx, bd, device=dev)
+    init = enh.initial_state()
+    state = init
+    t0 = time.perf_counter()
+    for f in files:
+        x = read_wav_int16(f)[0]
+        y, st = enh.enhance(x, state=state, return_state=True)
+        state = init._replace(b_d_head=st.b_d_head)
+        same_int16(f"cli carry {f.name}",
+                   read_wav_int16(out / f"{f.stem}_enh.wav")[0], y)
+    loop_s = time.perf_counter() - t0
+    with np.load(state_path) as z:
+        if not np.array_equal(z["b_d_head"], state.b_d_head.cpu().numpy()):
+            raise AssertionError("cli carry: B_D_u is not the last head")
+    text2, _, _ = cli_call(mu, argv, total)
+    if last_json(text2)["skipped"] != CLI_CARRY_FILES:
+        raise AssertionError(f"cli carry: the second run {text2.strip()}")
+    print(f"cli carry: {CLI_CARRY_FILES} files on the exact plan, B_D_u "
+          f"carried file to file, the command {seconds:.3f} s "
+          f"(in-process loop {loop_s:.3f} s), every file int16 identical, "
+          f"B_D_u = the last head; the second run skipped "
+          f"{CLI_CARRY_FILES}; launches {launches} ({card})")
+
+    src = files[0]
+    x = read_wav_int16(src)[0]
+    _, _, proc_s = cli_process(["enhance", src, "-o", tmp / "process.wav",
+                                *bases["args"]])
+    same_int16("python -m se_snmf_nat_tpu_torch enhance",
+               read_wav_int16(tmp / "process.wav")[0], enh.enhance(x))
+    text, seconds, launches = cli_call(
+        mu, ["separate", src, "-o", tmp / "sep", *bases["args"]], total)
+    sep = enh.separate(x)
+    same_int16("cli separate", read_wav_int16(tmp / "sep_enhanced.wav")[0],
+               sep["enhanced"])
+    rep = last_json(text)
+    if (rep["events"], rep["noises"]) != (len(sep["events"]),
+                                          len(sep["noises"])):
+        raise AssertionError(f"cli separate: {rep}")
+    print(f"cli process: python -m se_snmf_nat_tpu_torch enhance with no "
+          f"--device ran on the card in {proc_s:.1f} s (a process of its "
+          f"own), its output = the in-process run; separate: "
+          f"{rep['events']} events, {rep['noises']} noises, enhanced = "
+          f"SnmfEnhancer.separate, {seconds:.3f} s ({card})")
+    return db8, enh
+
+
+def cli_training(mu, card, tmp, db8, total):
+    """``train`` of both classes (CLI_TRAIN_CLIPS wavs of 12 s each), a
+    second ``train`` that hits the cache, ``dnmf`` on the trained pair, and
+    ``campaign`` over two targets with one basename."""
+    from se_snmf_nat_tpu_torch import fixtures
+    from se_snmf_nat_tpu_torch.io.basis import (
+        BasisPair, load_basis, save_basis)
+    dbs = {}
+    for kind, seed in (("speech", 5000), ("noise", 6000)):
+        dbs[kind] = tmp / f"{kind}_db"
+        fixtures.write_wav_dir(dbs[kind], kind, CLI_TRAIN_CLIPS,
+                               TRAIN_CLIP_S, seed=seed)
+    secs = {}
+    for kind in dbs:
+        argv = ["train", "--db", dbs[kind], "--basis-dir",
+                tmp / "basis" / kind, "--rank", 100, "--seed", 0]
+        text, s1, _ = cli_call(mu, argv, total)
+        ckpt = tmp / "basis" / kind / "R_100.npz"
+        stamp = ckpt.stat().st_mtime_ns
+        _, s2, _ = cli_call(mu, argv, total)
+        if ckpt.stat().st_mtime_ns != stamp or not s2 < s1:
+            raise AssertionError(f"cli train {kind}: no cache hit")
+        if last_json(text)["b_dft_shape"] != [513, 100]:
+            raise AssertionError(f"cli train {kind}: {text.strip()}")
+        secs[kind] = (s1, s2)
+    sp, nz = (load_basis(tmp / "basis" / k / "R_100.npz") for k in dbs)
+    save_basis(tmp / "pair.npz", BasisPair(
+        b_dft=np.concatenate([sp.b_dft, nz.b_dft], axis=1),
+        b_mel=np.concatenate([sp.b_mel, nz.b_mel], axis=1)))
+    clean, noise = (sorted(dbs[k].glob("*.wav"))[0] for k in dbs)
+    _, dnmf_s, _ = cli_call(mu, ["dnmf", "--clean", clean, "--noise", noise,
+                                 "--basis", tmp / "pair.npz", "--output",
+                                 tmp / "dnmf.npz"], total)
+    refit = load_basis(tmp / "dnmf.npz").b_dft
+    moved = float(np.abs(refit - np.concatenate([sp.b_dft, nz.b_dft],
+                                                axis=1)).max())
+    if refit.shape != (513, 200) or not np.isfinite(refit).all() \
+            or not moved > 0:
+        raise AssertionError(f"cli dnmf: {refit.shape}, moved {moved}")
+    targets = []
+    for cond in ("condA", "condB"):
+        t = tmp / cond / "test"
+        t.mkdir(parents=True)
+        for f in sorted(db8.glob("*.wav")):
+            (t / f.name).write_bytes(f.read_bytes())
+        targets.append(t)
+    out_root = tmp / "campaign"
+    text, camp_s, launches = cli_call(
+        mu, ["campaign", "--speech-db", dbs["speech"], "--noise-db",
+             dbs["noise"], "--basis-root", tmp / "campaign_basis",
+             "--out-root", out_root, "--targets", *targets, "--seed", 0],
+        total)
+    res = last_json(text)
+    for key, row in res.items():
+        n_out = len(list((out_root / key).glob("*_enh.wav")))
+        if row["processed"] != CLI_CARRY_FILES or n_out != CLI_CARRY_FILES \
+                or not (out_root / f"B_D_u_{key}.npz").exists():
+            raise AssertionError(f"cli campaign {key}: {row}, {n_out} files")
+    if len(res) != 2:
+        raise AssertionError(f"cli campaign: keys {list(res)}")
+    print(f"cli train: {CLI_TRAIN_CLIPS} wavs of {TRAIN_CLIP_S:.0f} s a "
+          f"class, rank 100: speech {secs['speech'][0]:.2f} s, noise "
+          f"{secs['noise'][0]:.2f} s; second calls cache hits "
+          f"({secs['speech'][1]:.3f}, {secs['noise'][1]:.3f} s); dnmf "
+          f"{dnmf_s:.2f} s, [B_x, B_d] 513 x 200 moved by {moved:.3e}; "
+          f"campaign of two targets named 'test' -> keys {list(res)}, "
+          f"{CLI_CARRY_FILES} files and a B_D_u each, {camp_s:.2f} s, "
+          f"launches {launches} ({card})")
+
+
+def cli_demo(mu, dev, card, tmp, bases, db8, total):
+    """``demo`` in the modes snmf (with ``--toggle-every``), ms, bnmf and
+    pmwf: each file output identical to the port's session or one-shot run
+    of the same samples; a stdin ``--pcm-out`` process."""
+    from se_snmf_nat_tpu_torch.bnmf import BnmfEnhancer, BnmfParams
+    from se_snmf_nat_tpu_torch.config import default_config
+    from se_snmf_nat_tpu_torch.enhance.ms import MmseEnhancer
+    from se_snmf_nat_tpu_torch.io.native import read_wav_int16
+    from se_snmf_nat_tpu_torch.multichannel import (
+        PmwfParams, PmwfStreamingSession)
+    from se_snmf_nat_tpu_torch.multichannel.fixture import synth_mixture
+    from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    from se_snmf_nat_tpu_torch.stream.streaming import StreamingSession
+    src = sorted(db8.glob("*.wav"))[1]
+    x = read_wav_int16(src)[0]
+    hop, every = 160, DEMO_TOGGLE_EVERY
+    hops = [x[i: i + hop] for i in range(0, len(x) - hop + 1, hop)]
+    lines = []
+
+    def demo(mode, inp, *extra):
+        out = tmp / f"demo_{mode}.wav"
+        text, seconds, launches = cli_call(
+            mu, ["demo", inp, "--mode", mode, "-o", out, *extra], total)
+        rep = last_json(text)
+        lines.append(f"{mode} {rep['hops']} hops, {seconds:.2f} s, p50 "
+                     f"{rep['hop_latency_ms']['p50']} ms a hop, launches "
+                     f"{launches}")
+        return read_wav_int16(out)[0], text
+
+    got, text = demo("snmf", src, "--block", 8, "--toggle-every", every,
+                     "--verbose", *bases["args"])
+    if "NAT adaptation -> OFF" not in text \
+            or "NAT adaptation -> ON" not in text:
+        raise AssertionError("cli demo snmf: the toggles were not printed")
+    bx, bd = bases["arrays"]
+    sess = StreamingSession(SnmfEnhancer(default_config(), bx, bd, bx, bd,
+                                         device=dev), block_frames=8)
+    ys, on = [], True
+    for h, chunk in enumerate(hops):
+        want_on = (h // every) % 2 == 0
+        if want_on != on:
+            ys.append(sess.set_adaptation(want_on))
+            on = want_on
+        ys.append(sess.push(chunk))
+    ys.append(sess.flush())
+    same_int16("cli demo snmf", got, np.concatenate(ys))
+
+    got, _ = demo("ms", src)
+    want = MmseEnhancer(16000, device=dev).enhance(x)
+    if len(got) != len(want) - hop:     # the stream keeps its last tail
+        raise AssertionError(f"cli demo ms: {len(got)} of {len(want)}")
+    same_int16("cli demo ms", got, want[: len(got)])
+    ms_file = got
+
+    short = write_int16(tmp / "bnmf_in.wav", x[:BNMF_DEMO_SAMPLES])
+    speech = sorted((tmp / "speech_db").glob("*.wav"))[0]
+    got, _ = demo("bnmf", short, "--block", 8, "--bnmf-speech", speech)
+    want = BnmfEnhancer(speech=read_wav_int16(speech)[0],
+                        params=BnmfParams(k_speech=100),
+                        device=dev).enhance(x[:BNMF_DEMO_SAMPLES])
+    same_int16("cli demo bnmf", got, want)
+
+    mix, _ = synth_mixture(n=N_SAMPLES, n_ch=6)
+    paths = [write_int16(tmp / f"ch{c}.wav", mix[c]) for c in range(6)]
+    got, _ = demo("pmwf", ",".join(map(str, paths)), "--block", 8)
+    chans = np.stack([read_wav_int16(p)[0] for p in paths])
+    sess = PmwfStreamingSession(n_ch=6, params=PmwfParams(), block_frames=8,
+                                device=dev)
+    ys = [sess.push(chans[:, i: i + hop])[0]
+          for i in range(0, chans.shape[1] - hop + 1, hop)]
+    ys.append(sess.flush()[0])
+    same_int16("cli demo pmwf", got, np.concatenate(ys))
+
+    pcm, err, proc_s = cli_process(
+        ["demo", "-", "--mode", "ms", "--pcm-out"],
+        stdin=np.asarray(x, np.int16).astype("<i2").tobytes())
+    same_int16("cli demo stdin --pcm-out", np.frombuffer(pcm, "<i2"),
+               ms_file)
+    if last_json(err)["hops"] != len(hops):
+        raise AssertionError(f"cli demo stdin: {err.strip()[-300:]}")
+    print(f"cli demo: {'; '.join(lines)}; each file = the port's session or "
+          f"one-shot run of the same samples (snmf with {len(hops) // every}"
+          f" toggles, ms less its held last hop); stdin --pcm-out process "
+          f"{proc_s:.1f} s = the file mode ({card})")
+
+
+def cli_serve(bases, dev, card, db8):
+    """``serve`` as a process (8 lanes, ``block_frames=8``): one client
+    streams one utterance; its stream equals a ``MultiStreamSession`` run
+    of the same samples.  Every read and wait has a time limit and the
+    process is killed at the end."""
+    import queue
+    import threading
+
+    from se_snmf_nat_tpu_torch.config import default_config
+    from se_snmf_nat_tpu_torch.io.native import read_wav_int16
+    from se_snmf_nat_tpu_torch.runtime.server import enhance_over_socket
+    from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    from se_snmf_nat_tpu_torch.stream.serving import MultiStreamSession
+    x = read_wav_int16(sorted(db8.glob("*.wav"))[2])[0]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "se_snmf_nat_tpu_torch", "serve", "--lanes",
+         "8", "--block-frames", str(FLEET_BLOCK), *map(str, bases["args"])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        cwd=str(Path(__file__).resolve().parent))
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: lines.put(proc.stdout.readline()),
+                     daemon=True).start()
+    try:
+        t0 = time.perf_counter()
+        try:
+            info = json.loads(lines.get(timeout=CLI_TIMEOUT))
+        except queue.Empty:
+            raise AssertionError("cli serve: no address line") from None
+        up_s = time.perf_counter() - t0
+        port = int(info["serving"].rsplit(":", 1)[1])
+        t0 = time.perf_counter()
+        got = asyncio.run(asyncio.wait_for(
+            enhance_over_socket("127.0.0.1", port, x), CLI_TIMEOUT))
+        stream_s = time.perf_counter() - t0
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()
+    bx, bd = bases["arrays"]
+    enh = SnmfEnhancer(default_config(), bx, bd, bx, bd, device=dev)
+    smp = np.zeros((8, len(x)))
+    smp[0] = x
+    fleet = MultiStreamSession(enh, 8, block_frames=FLEET_BLOCK,
+                               wire="samples")
+    want = np.concatenate([fleet.push(smp), fleet.flush()], axis=1)[0]
+    same_int16("cli serve", got, want)
+    if info["lanes"] != 8 or info["block_frames"] != FLEET_BLOCK:
+        raise AssertionError(f"cli serve: {info}")
+    print(f"cli serve: a process, {info}, up in {up_s:.1f} s; one client "
+          f"streamed {len(x) / 16000:.2f} s in {stream_s:.2f} s, its stream "
+          f"= a MultiStreamSession run of the same samples ({card})")
+
+
+def cli_grid(mu, card, tmp, total):
+    """``grid``: the full grid (6 noises x 4 SNRs, GRID_CLIPS clips of 2.4
+    s, rank 100) with ``snmf`` and ``snmf_fixed``; then one condition
+    (``tmetro``, 5 dB) with ``imcra``, ``ms`` and ``bnmf``.  Every
+    algorithm's mean segmental SNR must rise above the noisy input's.
+    Returns an output file for ``eval``."""
+    from se_snmf_nat_tpu_torch import fixtures
+    speech = write_int16(tmp / "grid_speech.wav", fixtures.speechlike(
+        int(GRID_SPEECH_S * 16000), seed=8))
+    for name, ws, extra in (
+            ("full", tmp / "grid", ["--algorithms", "snmf", "snmf_fixed"]),
+            ("baselines", tmp / "grid1",
+             ["--noises", "tmetro", "--snrs", 5, "--algorithms", "imcra",
+              "ms", "bnmf"])):
+        text, seconds, launches = cli_call(
+            mu, ["grid", "--workspace", ws, "--speech-wav", speech,
+                 "--n-clips", GRID_CLIPS, "--report", ws / "report.json",
+                 *extra], total)
+        rep = json.loads((ws / "report.json").read_text())
+        if rep != last_json(text):
+            raise AssertionError(f"cli grid {name}: the report differs")
+        means = rep["mean_seg_snr_db"]
+        n_cond = len(rep["conditions"])
+        if n_cond != (24 if name == "full" else 1) or any(
+                not means[a] > means["noisy"] for a in means if a != "noisy"):
+            raise AssertionError(f"cli grid {name}: {n_cond} conditions, "
+                                 f"mean segSNR {means}")
+        print(f"cli grid {name}: {n_cond} conditions x {GRID_CLIPS} clips "
+              f"of 2.4 s, rank 100, {seconds:.1f} s; mean segSNR dB {means}"
+              + (f", nat_minus_fixed {rep['nat_minus_fixed_seg_snr_db']}"
+                 if name == "full" else "")
+              + f"; launches {launches} ({card})")
+    return tmp / "grid" / "enhanced" / "snmf" / "tmetro" / "5dB" \
+        / "clip_00.wav"
+
+
+def check_cli(mu, dev, card):
+    """Phase 13: the command line and the directory runner on the card at
+    full width (F=513, R=100 a class, r_a=50, ``default_config()``), on
+    ``fixtures.structured_bases`` saved through ``io.basis.save_basis``.
+    Returns the kernels' launches over every in-process command, each
+    counted from zero around its call (the path ``cli``)."""
+    import tempfile
+
+    from se_snmf_nat_tpu_torch import fixtures
+    from se_snmf_nat_tpu_torch.io.basis import BasisPair, save_basis
+    t_phase = time.perf_counter()
+    total = {"K1": 0, "K2": 0, "K3": 0}
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        bx, bd = fixtures.structured_bases(513, 100, 100, seed=0)
+        for name, b in (("bx", bx), ("bd", bd)):
+            save_basis(tmp / f"{name}.npz", BasisPair(b_dft=b,
+                                                      b_mel=b[:64]))
+        bases = {"arrays": (bx, bd),
+                 "args": ["--speech-basis", tmp / "bx.npz",
+                          "--noise-basis", tmp / "bd.npz"]}
+        db = cli_directory(mu, dev, card, tmp, bases, total)
+        db8, _ = cli_carry(mu, dev, card, tmp, bases, db, total)
+        cli_training(mu, card, tmp, db8, total)
+        cli_demo(mu, dev, card, tmp, bases, db8, total)
+        cli_serve(bases, dev, card, db8)
+        out = cli_grid(mu, card, tmp, total)
+        text, _, _ = cli_call(mu, ["eval", "--got", out, "--want", out],
+                              total)
+        ev = last_json(text)
+        if ev["max_abs_err"] != 0.0 or ev["corr"] != 1.0:
+            raise AssertionError(f"cli eval of a file against itself: {ev}")
+        print(f"cli eval: a grid output against itself, max_abs_err "
+              f"{ev['max_abs_err']}, corr {ev['corr']}")
+    print(f"cli phase: {time.perf_counter() - t_phase:.1f} s, launches "
+          f"{total}")
+    if not all(total.values()):
+        raise AssertionError(f"the command line launches K1, K2 and K3: "
+                             f"{total}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU path here",
@@ -2577,16 +3099,20 @@ def main() -> int:
     # 12. the multichannel path (no MU kernel)
     multichannel_launches = check_multichannel(mu, dev, card)
 
-    # 13. results: each path's launches were counted from zero around its
+    # 13. the command line and the directory runner
+    cli_launches = check_cli(mu, dev, card)
+
+    # 14. results: each path's launches were counted from zero around its
     # own first run (headline, fast plan, exact plan, the hop-by-hop stream,
     # the first fleet, the server's life, the three plans on the trained
-    # dictionaries, the baselines' and the multichannel path's whole phase)
+    # dictionaries, the baselines' and the multichannel path's whole phase,
+    # and every in-process command of phase 13)
     by_path = {"headline": launches, "fast": {"K1": 0, "K2": 0,
                                               "K3": c_launches},
                "exact": exact_launches, "streaming": stream_launches,
                "fleet": fleet_launches, "server": server_launches,
                "trained": trained_launches, "baselines": baseline_launches,
-               "multichannel": multichannel_launches}
+               "multichannel": multichannel_launches, "cli": cli_launches}
 
     def entry(key, name, source, replaces, per_batch, err, timing, **more):
         ms, plain, bnd, by = timing

@@ -1,0 +1,4 @@
+from se_snmf_nat_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

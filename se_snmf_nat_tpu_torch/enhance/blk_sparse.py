@@ -17,6 +17,7 @@ time axis, and over the P_len_k bins of each center.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -38,6 +39,25 @@ def snr_column(xm: torch.Tensor, dm: torch.Tensor,
     snr = xm / torch.clamp(dm, min=nonzerofloor)
     peak = torch.amax(snr, dim=-1, keepdim=True)
     return snr / torch.where(peak > 0, peak, torch.ones_like(peak))
+
+
+def noise_bias(a_d_mag: torch.Tensor, a_x_mag: torch.Tensor, beta: float,
+               beta_max: float) -> torch.Tensor:
+    """The noise-bias factor ``clamp(20 log10(a_d / a_x) * beta, beta,
+    beta_max)`` of the mean noise and speech activations.  A frame whose
+    activations all underflow to 0 (a floored frame in float32: with sparse
+    trained dictionaries the solve drives them below the smallest denormal)
+    gives 0/0; its ratio is taken as 1, so the factor sits at its floor.
+    The reference's NaN there enters the noise estimate and every later
+    frame's output.  float64 never underflows there."""
+    ratio = torch.nan_to_num(a_d_mag / a_x_mag, nan=1.0, posinf=math.inf)
+    return torch.clamp(20.0 * torch.log10(ratio) * beta, beta, beta_max)
+
+
+def wiener_gain(xm: torch.Tensor, dm: torch.Tensor) -> torch.Tensor:
+    """``xm / (xm + dm)``, and 0 where both reconstructions underflow to
+    0 (the reference's 0/0, see ``noise_bias``)."""
+    return torch.nan_to_num(xm / (xm + dm), nan=0.0, posinf=math.inf)
 
 
 class _QMaps:
@@ -79,8 +99,12 @@ class _QMaps:
         """Q (..., F) from the centers' window sums l1 and root sums of
         squares l2 (..., C); ``late`` says where the ring has filled
         (l > P_len_l): True everywhere, or a bool tensor broadcasting
-        against (..., 1)."""
-        p_tmp = (self.sqrt_n - l1 / l2) / (self.sqrt_n - 1.0)
+        against (..., 1).  A window of zero columns only (float32 frames
+        whose speech reconstruction underflowed, see ``snr_column``) gives
+        0/0, which the reference passes on as NaN; its ratio is taken as
+        that of a flat window, sqrt(n): not sparse."""
+        ratio = torch.nan_to_num(l1 / l2, nan=self.sqrt_n)
+        p_tmp = (self.sqrt_n - ratio) / (self.sqrt_n - 1.0)
         if self.tri_t is None:
             p_val = self.alpha_p * 0.1 + (1.0 - self.alpha_p) * p_tmp
         else:

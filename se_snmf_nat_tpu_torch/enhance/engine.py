@@ -46,7 +46,8 @@ from torch import nn
 from se_snmf_nat_tpu_torch.config import PipelineConfig
 from se_snmf_nat_tpu_torch.device import full_f32, resolve_device
 from se_snmf_nat_tpu_torch.dsp.mel import mel_matrix
-from se_snmf_nat_tpu_torch.enhance.blk_sparse import block_sparsity_q
+from se_snmf_nat_tpu_torch.enhance.blk_sparse import (
+    block_sparsity_q, noise_bias, wiener_gain)
 from se_snmf_nat_tpu_torch.enhance.state import (
     EngineState, init_engine_state)
 from se_snmf_nat_tpu_torch.kernels.mu import (
@@ -256,8 +257,7 @@ class Engine(nn.Module):
             lambda_dav = ym_dft if l == 1 else state.lambda_dav
         a_d_mag = torch.sum(a[:, r_x:], dim=-1) / r_d          # (B,)
         a_x_mag = torch.sum(a[:, :r_x], dim=-1) / r_x
-        beta = torch.clamp(20.0 * torch.log10(a_d_mag / a_x_mag) * en.beta,
-                           en.beta, en.beta_max)
+        beta = noise_bias(a_d_mag, a_x_mag, en.beta, en.beta_max)
         lambda_dav = (en.alpha_d * lambda_dav
                       + (1 - en.alpha_d) * dm_hat * beta[:, None])
         in_init = l <= ad.init_n_len          # bool, or (B,) per lane
@@ -266,7 +266,7 @@ class Engine(nn.Module):
             a_x_mag = torch.full_like(a_x_mag, flr)
         else:
             if en.method == "Wiener":
-                gain = xm_hat / (xm_hat + dm_hat)
+                gain = wiener_gain(xm_hat, dm_hat)
             else:
                 eta = (en.alpha_eta * state.xm_tilde
                        + (1 - en.alpha_eta) * xm_hat * q) \

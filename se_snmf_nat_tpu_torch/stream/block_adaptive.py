@@ -30,7 +30,7 @@ from se_snmf_nat_tpu_torch.dsp.stft import (
     analysis_frames, dft_matrices_stacked, overlap_add, synthesis_frames)
 from se_snmf_nat_tpu_torch.dsp.windows import sqrt_hann_periodic
 from se_snmf_nat_tpu_torch.enhance.blk_sparse import (
-    make_block_sparsity_q_block, snr_column)
+    make_block_sparsity_q_block, noise_bias, snr_column, wiener_gain)
 from se_snmf_nat_tpu_torch.enhance.state import EngineState
 from se_snmf_nat_tpu_torch.kernels.mu import (
     mu_h_solve_lanes, mu_h_solve_lanes_ref, mu_w_solve_lanes,
@@ -215,12 +215,11 @@ class BlockStep(nn.Module):
                                          lambda_dav_c)
             else:
                 lambda_dav = ym_dft_blk[:, k] if l == 1 else lambda_dav_c
-            beta = torch.clamp(20.0 * torch.log10(ad_mag / ax_mag) * en.beta,
-                               en.beta, en.beta_max)
+            beta = noise_bias(ad_mag, ax_mag, en.beta, en.beta_max)
             lambda_dav = (en.alpha_d * lambda_dav
                           + (1 - en.alpha_d) * dm_hat * beta[:, None])
             if en.method == "Wiener":
-                gain = xm_hat / (xm_hat + dm_hat)
+                gain = wiener_gain(xm_hat, dm_hat)
             else:
                 eta = (en.alpha_eta * xm_tilde_prev
                        + (1 - en.alpha_eta) * xm_hat * q) \

@@ -38,7 +38,7 @@ from se_snmf_nat_tpu_torch.dsp.mel import mel_matrix
 from se_snmf_nat_tpu_torch.dsp.stft import (
     analysis_frames, dft_matrices_stacked, overlap_add, synthesis_frames)
 from se_snmf_nat_tpu_torch.enhance.blk_sparse import (
-    make_block_sparsity_q_block, snr_column)
+    make_block_sparsity_q_block, noise_bias, snr_column, wiener_gain)
 from se_snmf_nat_tpu_torch.kernels.mu import (
     mu_h_solve_columns, mu_h_solve_columns_ref)
 from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_v4_rand_matrix
@@ -140,7 +140,7 @@ class FastRun(nn.Module):
             ym_dft = torch.matmul(y_sep, self.melmat)
         n_init = ad.init_n_len             # frames l <= init_n_len: gain flr
         if en.method == "Wiener":
-            gain = torch.clamp(xm / (xm + dm), max=1.0)
+            gain = torch.clamp(wiener_gain(xm, dm), max=1.0)
             gain[:, :n_init] = flr
             xm_tilde = gain * mag
         else:
@@ -155,9 +155,7 @@ class FastRun(nn.Module):
                 x_in = (1 - en.alpha_eta) * xm
             a_d_mag = torch.sum(a[..., r_x:], dim=-1) / r_d   # (B, T)
             a_x_mag = torch.sum(a[..., :r_x], dim=-1) / r_x
-            beta = torch.clamp(
-                20.0 * torch.log10(a_d_mag / a_x_mag) * en.beta, en.beta,
-                en.beta_max)
+            beta = noise_bias(a_d_mag, a_x_mag, en.beta, en.beta_max)
             d_in = (1 - en.alpha_d) * dm * beta[..., None]
             lambda_dav = ym_dft[:, 0]
             xm_prev = torch.zeros_like(lambda_dav)

@@ -150,6 +150,11 @@ class MultiStreamSession:
                                            device=self._dev)
             self._dev_synced = True
 
+    @property
+    def block_frames(self) -> int:
+        """Frames a tick."""
+        return self._block
+
     # ------------------------------------------------------------------
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the device.  On the card it goes through pinned
@@ -504,6 +509,10 @@ class ShardedFleet:
 
     # -- what a server reads (the shards tick together, so shard 0 stands
     #    for all) ----------------------------------------------------------
+    @property
+    def block_frames(self) -> int:
+        return self._block
+
     @property
     def _pending(self):
         return self.shards[0]._pending

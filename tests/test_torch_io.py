@@ -60,6 +60,10 @@ COPIES = [
     # build/, never into native/); the names of both packages' are left out
     ("io/native.py", ("-", "_NATIVE_DIR", "_ROOT", "_SOURCE", "_LIB_PATH",
                       "_build")),
+    ("runtime/profiling.py", ("StageTimer",)),
+    ("runtime/grid.py", ("NOISE_TYPES", "SNR_LIST", "_lp", "synth_noise",
+                         "_write")),
+    ("cli.py", ("cmd_eval",)),
 ]
 
 # copies kept under a path of the port's own: (reference module, port
@@ -121,6 +125,33 @@ def test_moved_copy_equals_reference_outside_imports(ref_rel, port_rel,
     ref = _statements(ROOT / "se_snmf_nat_tpu" / ref_rel, names)
     port = _statements(ROOT / "se_snmf_nat_tpu_torch" / port_rel, names)
     assert port == ref
+
+
+def test_grid_corpus_copy_equals_reference_outside_its_path():
+    """``build_grid_corpus`` is the reference's but for one thing: the
+    speech wav has no default (the reference's is a fixed path into the
+    reference recordings)."""
+    ref_tree = _NoImports().visit(ast.parse(
+        (ROOT / "se_snmf_nat_tpu" / "runtime" / "grid.py").read_text()))
+    fn = next(n for n in ref_tree.body if getattr(n, "name", None)
+              == "build_grid_corpus")
+    assert fn.args.kwonlyargs[-1].arg == "speech_wav"
+    assert ast.dump(fn.args.kw_defaults[-1]) == ast.dump(
+        ast.Name(id="SPEECH_SOURCE", ctx=ast.Load()))
+    fn.args.kw_defaults[-1] = None
+    port = _statements(ROOT / "se_snmf_nat_tpu_torch" / "runtime" / "grid.py",
+                       ("build_grid_corpus",))
+    assert port == {"build_grid_corpus": ast.dump(fn)}
+
+
+def test_graft_entry_bases_copy_equals_reference_outside_its_docstring():
+    def body(path):
+        fn = next(n for n in ast.parse(path.read_text()).body
+                  if getattr(n, "name", None) == "_tiny_bases")
+        fn.body = fn.body[1:]                       # the docstring
+        return ast.dump(fn)
+    assert body(ROOT / "se_snmf_nat_tpu_torch" / "graft_entry.py") \
+        == body(ROOT / "__graft_entry__.py")
 
 
 # ---------------------------------------------------------------------------

@@ -69,6 +69,13 @@ def _run(code: str, cwd=ROOT, env_extra=None):
     "se_snmf_nat_tpu_torch.io.native",
     "se_snmf_nat_tpu_torch.io.capture",
     "se_snmf_nat_tpu_torch.utils.visualize",
+    "se_snmf_nat_tpu_torch.cli",
+    "se_snmf_nat_tpu_torch.__main__",
+    "se_snmf_nat_tpu_torch.graft_entry",
+    "se_snmf_nat_tpu_torch.runtime",
+    "se_snmf_nat_tpu_torch.runtime.runner",
+    "se_snmf_nat_tpu_torch.runtime.grid",
+    "se_snmf_nat_tpu_torch.runtime.profiling",
 ])
 def test_port_imports_without_jax(module):
     """Importing a port module loads neither ``jax`` nor any module of the
@@ -155,7 +162,8 @@ def _default_device_cases():
     from se_snmf_nat_tpu_torch.train.features import training_features
     from se_snmf_nat_tpu_torch import multichannel as mc
     from se_snmf_nat_tpu_torch.convert import pmwf_state_from_jax
-    from se_snmf_nat_tpu_torch.runtime import checkpoint
+    from se_snmf_nat_tpu_torch.runtime import checkpoint, grid
+    from se_snmf_nat_tpu_torch import graft_entry
     cfg, fixed = default_config(), preset("snmf")
     bx, bd = fixtures.synthetic_bases(cfg.signal.n_bins, cfg.sep.r_x,
                                       cfg.sep.r_d)
@@ -236,6 +244,8 @@ def _default_device_cases():
             ROOT / "no_such_file.npz"),
         "load_engine_state": lambda: checkpoint.load_engine_state(
             ROOT / "no_such_file.npz"),
+        "graft_entry": lambda: graft_entry.entry(),
+        "run_grid": lambda: grid.run_grid(ROOT / "no_such_dir"),
     }
 
 
@@ -253,7 +263,7 @@ def _default_device_cases():
     "make_pmwf_streaming_run", "make_pmwf_streaming_run_fast",
     "make_pmwf_batch_run", "make_pmwf_batch_run_fast", "pmwf_stream_init",
     "ntf_solve", "NtfStreamingSession", "pmwf_state_from_jax",
-    "load_pmwf_state", "load_engine_state"])
+    "load_pmwf_state", "load_engine_state", "graft_entry", "run_grid"])
 def test_entry_point_without_device_raises_without_a_card(entry):
     """``device=None`` means the card: without one every entry point raises
     and none carries on on the CPU."""
