@@ -185,7 +185,27 @@ before printing any result.
     ``bnmf``: every algorithm's mean segmental SNR above the noisy
     input's; ``eval`` of an output against itself; K1, K2 and K3 each
     launched on the path; the phase's seconds;
-14. a JSON line of the kernels (``launches``: the sum over the paths'
+14. the two repaired faults and ``parallel/`` at full width
+    (``default_config()``, F=513, R=100 a class, r_a=50, m_a=100): the
+    block (headline) and fast (``snmf``) plans with beta 0 and 2 in
+    float32, and the exact, fast and block plans in bfloat16 with the
+    matmul DFT, on the phase-4 utterances: the plain solvers, no kernel
+    launched, finite, correlation >= 0.99 a lane with the port's float64
+    CPU run, each batch timed beside the plan's KL float32 run on the
+    kernels; the time shard (``parallel.time_shard``) on one synthetic 60 s
+    utterance, the sequential exact plan against D=8 and D=16 shards at
+    halo 384, each twice, with seconds, audio-s/s, K1 and K2 launched once
+    a frame of the window (required; the first D=8 run is the path
+    ``parallel``) and the correlation with the sequential output (printed:
+    with the adaptation on the adapted head carries the whole history;
+    with fixed dictionaries the D=16 shard must reproduce the sequential
+    exact run, correlation >= 0.99), then float64 at D=8 on a 5 s clip,
+    card against CPU within 1e-9, int16 identical; an NCCL world of one
+    (``init_multihost`` on tcp://127.0.0.1): the training step, the merge
+    and both TP solves equal to their unsharded forms, the group destroyed
+    after; ``audit_all`` on 8 logical shards of the card;
+    ``dryrun_multichip(1)``; the phase's seconds;
+15. a JSON line of the kernels (``launches``: the sum over the paths'
     first runs, each counted from zero, also given by path), the card's
     name and power limit, and the result line ``{"ok": true, "device":
     {...}}`` last.
@@ -2972,6 +2992,288 @@ def check_cli(mu, dev, card):
     return total
 
 
+TS_SECONDS = 60              # phase 14: the time shard's one long utterance
+TS_HALO = 384                # the reference's default warm-up
+TS_CLIP = 5                  # seconds of the float64 card-against-CPU clip
+
+
+def corr_lanes(got, want) -> list[float]:
+    return [float(np.corrcoef(a.astype(float), b.astype(float))[0, 1])
+            for a, b in zip(got, want)]
+
+
+def check_beta_and_bfloat16(mu, dev, card):
+    """Phase 14, the two repaired faults: the block plan (headline) and the
+    fast plan ``snmf`` with beta 0 (IS) and 2 (ED) in float32, and the
+    exact, fast and block plans in bfloat16 with the matmul DFT, on the
+    phase-4 utterances at full width.  The plain solvers run (the kernels
+    are KL and float32 only): K1-K3 must stay at 0.  Each output finite
+    and correlated >= 0.99 a lane with the port's float64 CPU run on 2
+    lanes; each batch timed warm beside the same plan's KL float32 run on
+    the kernels."""
+    from dataclasses import replace
+
+    from se_snmf_nat_tpu_torch import fixtures
+    from se_snmf_nat_tpu_torch.config import default_config, preset
+    from se_snmf_nat_tpu_torch.headline import HEADLINE_PLAN
+    from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    bx, bd = fixtures.structured_bases(513, 100, 100, seed=0)
+    xs = [fixtures.noisy_utterance(N_SAMPLES, seed=i) for i in range(N_UTT)]
+    audio_s = N_UTT * N_SAMPLES / 16000
+
+    def with_cf(cfg, cf):
+        return cfg.evolve(nmf=replace(cfg.nmf, cf=cf))
+
+    block, fast, exact = (HEADLINE_PLAN, {"dft_matmul": True},
+                          {"dft_matmul": True})
+    cases = [
+        ("block plan, KL float32 (kernels)", default_config(), block,
+         torch.float32),
+        ("block plan, beta 0 (IS)", with_cf(default_config(), "is"), block,
+         torch.float32),
+        ("block plan, beta 2 (ED)", with_cf(default_config(), "ed"), block,
+         torch.float32),
+        ("block plan, bfloat16", default_config(), block, torch.bfloat16),
+        ("fast plan, KL float32 (kernels)", preset("snmf"), fast,
+         torch.float32),
+        ("fast plan, beta 0 (IS)", with_cf(preset("snmf"), "is"), fast,
+         torch.float32),
+        ("fast plan, beta 2 (ED)", with_cf(preset("snmf"), "ed"), fast,
+         torch.float32),
+        ("fast plan, bfloat16", preset("snmf"), fast, torch.bfloat16),
+        ("exact plan, KL float32 (kernels)", default_config(), exact,
+         torch.float32),
+        ("exact plan, bfloat16", default_config(), exact, torch.bfloat16)]
+    for name, cfg, kw, dtype in cases:
+        enh = SnmfEnhancer(cfg, bx, bd, bx, bd, device=dev, dtype=dtype, **kw)
+        reset_launches(mu)
+        t0 = time.perf_counter()
+        ys = enh.enhance_batch(xs)
+        first = time.perf_counter() - t0
+        launches = read_launches(mu)
+        t0 = time.perf_counter()
+        enh.enhance_batch(xs)
+        warm = time.perf_counter() - t0
+        finite = bool(np.isfinite(enh.enhance(xs[0], quantize=False)).all())
+        cpu = SnmfEnhancer(cfg, bx, bd, bx, bd, device="cpu",
+                           dtype=torch.float64, **kw)
+        corrs = corr_lanes(ys[:2], cpu.enhance_batch(xs[:2]))
+        kernels = "kernels" in name
+        print(f"beta/bfloat16, {name}: B={N_UTT} first {first:.3f} s, warm "
+              f"{warm:.3f} s ({audio_s / warm:.1f} audio-s/s), launches "
+              f"{launches}, finite {finite}, corr with CPU float64 "
+              f"{', '.join(f'{c:.6f}' for c in corrs)} ({card})")
+        if not finite or min(corrs) < 0.99 or (
+                kernels != bool(launches["K1"] or launches["K3"])):
+            raise AssertionError(f"beta/bfloat16 case {name}: {launches}")
+        if not kernels and any(launches.values()):
+            raise AssertionError(f"{name} launched a kernel: {launches}")
+
+
+def time_shard_run(enh, x, mesh, halo):
+    from se_snmf_nat_tpu_torch.parallel.time_shard import (
+        enhance_time_sharded)
+    t0 = time.perf_counter()
+    y = enhance_time_sharded(enh, x, mesh, halo=halo)
+    return y, time.perf_counter() - t0
+
+
+def check_time_shard(mu, dev, card):
+    """Phase 14, the time shard at full width (``default_config()``,
+    F=513, r_x=r_d=100, r_a=50, m_a=100, float32) on one synthetic 60 s
+    utterance (``fixtures.noisy_utterance``): the sequential exact plan
+    against D=8 and D=16 shards at halo 384 as lanes of one frame loop, each
+    run twice (the second warm); wall seconds, audio-s/s, K1 and K2
+    launches (one each a frame of the window, required), and the
+    correlation with the sequential output.  With the online adaptation on
+    that correlation is printed, not required: the adapted noise head
+    carries the whole history, which a 384-frame warm-up does not rebuild
+    on this fixture (the reference's time shard gives the same samples in
+    float64, ``tests/test_torch_time_shard.py``).  With fixed dictionaries
+    (``adapt_train_n=False``, K1 only) the D=16 shard must reproduce the
+    sequential exact run: correlation >= 0.99.  Then the float64 card
+    against the CPU at D=8 on a 5 s clip (<= 1e-9, int16 identical).
+    Returns the launches of the first D=8 run (the path ``parallel``)."""
+    from dataclasses import replace
+
+    from se_snmf_nat_tpu_torch import fixtures
+    from se_snmf_nat_tpu_torch.config import default_config
+    from se_snmf_nat_tpu_torch.parallel.mesh import make_mesh
+    from se_snmf_nat_tpu_torch.parallel.time_shard import (
+        enhance_time_sharded)
+    from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    cfg = default_config()
+    bx, bd = fixtures.structured_bases(513, 100, 100, seed=0)
+    enh = SnmfEnhancer(cfg, bx, bd, bx, bd, device=dev)
+    x = fixtures.noisy_utterance(TS_SECONDS * 16000, seed=4000)
+    t = enh.frames_for(x).shape[0]
+    seq_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        seq = enh.enhance(x)
+        seq_s.append(time.perf_counter() - t0)
+    print(f"time shard: sequential exact plan, {TS_SECONDS} s ({t} frames) "
+          f"in {seq_s[0]:.2f} s then {seq_s[1]:.2f} s "
+          f"({TS_SECONDS / min(seq_s):.1f} audio-s/s) ({card})")
+    path = None
+    for d in (8, 16):
+        mesh = make_mesh((d, 1), devices=[dev] * d)
+        width = TS_HALO + -(-t // d)
+        for run in range(2):
+            reset_launches(mu)
+            y, secs = time_shard_run(enh, x, mesh, TS_HALO)
+            launches = read_launches(mu)
+            path = path or launches
+            c = corr_lanes([y], [seq])[0]
+            print(f"time shard D={d}, halo {TS_HALO} (window {width} frames,"
+                  f" run {run + 1}): {secs:.2f} s, {TS_SECONDS / secs:.1f} "
+                  f"audio-s/s, {min(seq_s) / secs:.2f}x the sequential, "
+                  f"launches {launches}, corr with sequential {c:.6f} "
+                  f"({card})")
+            if launches != {"K1": width, "K2": width, "K3": 0}:
+                raise AssertionError(f"time shard D={d}: {launches}")
+    fixed = SnmfEnhancer(cfg.evolve(adapt=replace(cfg.adapt,
+                                                  adapt_train_n=False)),
+                         bx, bd, bx, bd, device=dev)
+    t0 = time.perf_counter()
+    seq_fixed, _ = fixed.enhance(x, return_state=True)     # the exact plan
+    fixed_s = time.perf_counter() - t0
+    mesh = make_mesh((16, 1), devices=[dev] * 16)
+    reset_launches(mu)
+    y, secs = time_shard_run(fixed, x, mesh, TS_HALO)
+    launches = read_launches(mu)
+    c = corr_lanes([y], [seq_fixed])[0]
+    gap = int(np.abs(y.astype(np.int64) - seq_fixed).max())
+    print(f"time shard, fixed dictionaries: sequential {fixed_s:.2f} s, "
+          f"D=16 {secs:.2f} s, launches {launches}, corr with sequential "
+          f"{c:.9f}, largest int16 difference {gap} ({card})")
+    if c < 0.99 or launches["K1"] != TS_HALO + -(-t // 16):
+        raise AssertionError(f"time shard with fixed dictionaries: {c}")
+    x5 = x[: TS_CLIP * 16000]
+    outs = []
+    for d in (dev, "cpu"):
+        e64 = SnmfEnhancer(cfg, bx, bd, bx, bd, device=d, dtype=torch.float64)
+        mesh = make_mesh((8, 1), devices=[d] * 8)
+        t0 = time.perf_counter()
+        outs.append((enhance_time_sharded(e64, x5, mesh, halo=TS_HALO,
+                                          quantize=False),
+                     enhance_time_sharded(e64, x5, mesh, halo=TS_HALO),
+                     time.perf_counter() - t0))
+    (cf, cq, cs), (pf, pq, ps) = outs
+    rel = float(np.abs(cf - pf).max() / np.abs(pf).max())
+    same = bool(np.array_equal(cq, pq))
+    print(f"time shard float64, D=8 on {TS_CLIP} s: card against CPU max "
+          f"relative difference {rel:.3e}, int16 identical {same} (card "
+          f"{cs:.1f} s, CPU {ps:.1f} s for two runs) ({card})")
+    if not rel <= 1e-9 or not same:
+        raise AssertionError("time shard float64 on the card")
+    return path
+
+
+def check_world_of_one(mu, dev, card):
+    """Phase 14: an NCCL world of one (``init_multihost`` on
+    tcp://127.0.0.1): the training step (F=513, R=200, T=1024, 4 trips),
+    the merge and both TP solves over meshes whose axis spans the group,
+    each equal to its unsharded form; the group is destroyed after; then
+    ``audit_all`` on 8 logical shards of the card."""
+    import socket
+
+    import torch.distributed as dist
+
+    from se_snmf_nat_tpu_torch import fixtures
+    from se_snmf_nat_tpu_torch.enhance.state import batch_state
+    from se_snmf_nat_tpu_torch.nmf.solver import (
+        SnmfParams, snmf_h_solve_columns, snmf_solve)
+    from se_snmf_nat_tpu_torch.parallel.collectives_audit import (
+        audit_all, record)
+    from se_snmf_nat_tpu_torch.parallel.distributed import (
+        init_multihost, merged_dictionary_state)
+    from se_snmf_nat_tpu_torch.parallel.mesh import make_mesh
+    from se_snmf_nat_tpu_torch.parallel.model_shard import (
+        snmf_h_solve_columns_model_sharded, snmf_solve_model_sharded)
+    from se_snmf_nat_tpu_torch.parallel.train_step import (
+        _kl_mu_step_local, make_distributed_train_step)
+    from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    info = init_multihost(f"127.0.0.1:{port}", 1, 0)
+    try:
+        group = dist.group.WORLD
+        mesh = make_mesh((1, 1), devices=[dev], group=group)
+        tp = make_mesh((1, 1), devices=[dev], group=group,
+                       process_axis="model")
+        rng = np.random.default_rng(0)
+        v, w, h = (torch.as_tensor(rng.random(shape) + 0.01,
+                                   dtype=torch.float32, device=dev)
+                   for shape in ((513, 1024), (513, 200), (200, 1024)))
+        step = make_distributed_train_step(mesh, n_iter=4)
+        step(v, w, h)
+        torch.cuda.synchronize()
+        with record() as rep:
+            t0 = time.perf_counter()
+            w4, h4 = step(v, w, h)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        wr, hr = w, h
+        for _ in range(4):
+            wr, hr = _kl_mu_step_local(v, wr, hr, 5.0, 1e-9)
+        errs = {"train": max(rel_err(w4, wr)[0], rel_err(h4, hr)[0])}
+        bx, bd = fixtures.structured_bases(513, 100, 100, seed=0)
+        enh = SnmfEnhancer(None, bx, bd, bx, bd, device=dev)
+        states = batch_state(enh.initial_state(), 4)
+        merged = merged_dictionary_state(states, mesh)
+        errs["merge"] = rel_err(merged.b_d_head, states.b_d_head)[0]
+        p = SnmfParams(max_iter=40, conv_eps=1e-3)
+        v2, h2 = v[:, :256], h[:, :256]
+        got = snmf_h_solve_columns_model_sharded(v2, w, h2, p, tp)
+        ref = snmf_h_solve_columns(v2, w, h2, p)
+        errs["tp_h"] = rel_err(got.h, ref.h)[0]
+        trips_equal = bool(torch.equal(got.iters, ref.iters))
+        full = snmf_solve_model_sharded(v2, w, h2, p, tp)
+        ones = torch.ones(200, dtype=torch.bool, device=dev)
+        full_ref = snmf_solve(v2, w, h2, ones, ones, p)
+        errs["tp_full"] = rel_err(full.w, full_ref.w)[0]
+        trips_equal &= int(full.iters) == int(full_ref.iters)
+        print(f"NCCL world of one ({dist.get_backend()}, {info}): train "
+              f"step 4 trips at F=513 R=200 T=1024 in {step_s * 1e3:.2f} ms"
+              f" warm, {rep.count} all-reduces of "
+              f"{rep.ops[0]['bytes']} bytes; max relative difference to the"
+              f" unsharded forms {errs}, trips equal {trips_equal} ({card})")
+        if max(errs.values()) > 1e-6 or not trips_equal:
+            raise AssertionError(f"NCCL world of one: {errs}")
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    audit = audit_all()
+    print(f"collective audit on 8 logical shards of the card "
+          f"({time.perf_counter() - t0:.1f} s): " + json.dumps(
+              {k: {kk: v[kk] for kk in ("n_collectives", "total_bytes")}
+               for k, v in audit.items()}))
+
+
+def check_parallel(mu, dev, card):
+    """Phase 14: the two repaired faults on the card, the time shard at
+    full width, an NCCL world of one and ``dryrun_multichip(1)``.  Returns
+    the launches of the time shard's first D=8 run (the path
+    ``parallel``)."""
+    from se_snmf_nat_tpu_torch.graft_entry import dryrun_multichip
+    t_phase = time.perf_counter()
+    check_beta_and_bfloat16(mu, dev, card)
+    path = check_time_shard(mu, dev, card)
+    check_world_of_one(mu, dev, card)
+    reset_launches(mu)
+    t0 = time.perf_counter()
+    dryrun_multichip(1)
+    print(f"dryrun_multichip(1) on the card: {time.perf_counter() - t0:.1f} "
+          f"s, launches {read_launches(mu)}")
+    print(f"parallel phase: {time.perf_counter() - t_phase:.1f} s, the time "
+          f"shard's launches {path}")
+    if not path["K1"] or not path["K2"]:
+        raise AssertionError(f"the time shard runs K1 and K2: {path}")
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU path here",
@@ -3102,17 +3404,22 @@ def main() -> int:
     # 13. the command line and the directory runner
     cli_launches = check_cli(mu, dev, card)
 
-    # 14. results: each path's launches were counted from zero around its
+    # 14. the repaired faults, parallel/ (the time shard's first run is the
+    # path), an NCCL world of one, dryrun_multichip(1)
+    parallel_launches = check_parallel(mu, dev, card)
+
+    # 15. results: each path's launches were counted from zero around its
     # own first run (headline, fast plan, exact plan, the hop-by-hop stream,
     # the first fleet, the server's life, the three plans on the trained
     # dictionaries, the baselines' and the multichannel path's whole phase,
-    # and every in-process command of phase 13)
+    # every in-process command of phase 13, and the first time shard)
     by_path = {"headline": launches, "fast": {"K1": 0, "K2": 0,
                                               "K3": c_launches},
                "exact": exact_launches, "streaming": stream_launches,
                "fleet": fleet_launches, "server": server_launches,
                "trained": trained_launches, "baselines": baseline_launches,
-               "multichannel": multichannel_launches, "cli": cli_launches}
+               "multichannel": multichannel_launches, "cli": cli_launches,
+               "parallel": parallel_launches}
 
     def entry(key, name, source, replaces, per_batch, err, timing, **more):
         ms, plain, bnd, by = timing

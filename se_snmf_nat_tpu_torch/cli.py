@@ -36,18 +36,26 @@ import torch
 from se_snmf_nat_tpu_torch.device import resolve_device
 
 
-def _torch_dtype(name: str, what: str):
-    """The torch dtype of ``--dtype``.  bfloat16 stays a choice of the
-    parser, as in the reference, but no enhancer or trainer of the port runs
-    in it (their transforms and solves take float32 and float64), so it is
-    refused with a message naming ``what`` instead of being mapped to
-    another dtype."""
-    if name == "bfloat16":
+# why the reference raises in bfloat16 where it does
+_RFFT = ("its FFT takes only float32 or float64 (\"RFFT input must be "
+         "float32 or float64\")")
+_COND = ("its frame loop's two branches return bfloat16 and float32 "
+         "(\"cond branches must have equal output types\")")
+
+
+def _torch_dtype(name: str, what: str, bfloat16: bool = False,
+                 reason: str = _RFFT):
+    """The torch dtype of ``--dtype``.  bfloat16 runs where the reference
+    runs it (``bfloat16=True``): the SNMF plans with the matmul DFT
+    (``--dft-matmul``), training and DNMF, on the plain solvers (the
+    kernels are float32 only).  Where the reference raises in bfloat16 the
+    port refuses, naming ``what`` and the reference's ``reason``."""
+    if name == "bfloat16" and not bfloat16:
         raise SystemExit(
-            f"--dtype bfloat16: {what} of the port does not run in bfloat16 "
-            f"(its transforms and solves take float32 or float64); use "
-            f"--dtype float32")
-    return {"float32": torch.float32, "float64": torch.float64}[name]
+            f"--dtype bfloat16: {what} does not run in bfloat16, as in the "
+            f"reference, where {reason}; use --dtype float32")
+    return {"float32": torch.float32, "float64": torch.float64,
+            "bfloat16": torch.bfloat16}[name]
 
 
 def _load_bases(args, cfg):
@@ -84,7 +92,13 @@ def _build_enhancer(args):
         from dataclasses import replace
         cfg = cfg.evolve(nmf=replace(cfg.nmf, max_iter=args.max_iter))
     algo = args.algorithm.lower()
-    dtype = _torch_dtype(args.dtype, f"--algorithm {algo}")
+    if algo == "snmf":
+        dtype = _torch_dtype(
+            args.dtype, "--algorithm snmf without --dft-matmul",
+            bfloat16=getattr(args, "dft_matmul", False))
+    else:
+        dtype = _torch_dtype(args.dtype, f"--algorithm {algo}",
+                             reason=_COND if algo == "imcra" else _RFFT)
     device = args.device
     if algo != "snmf":
         # these knobs configure the SNMF plans only; anything else would
@@ -214,7 +228,8 @@ def cmd_train(args) -> int:
     pair = train_event_basis_cached(
         args.db, args.basis_dir, cfg, args.rank, dc_freq=args.dc_freq,
         vad=args.vad, force_retrain=args.force,
-        dtype=_torch_dtype(args.dtype, "train"), device=args.device,
+        dtype=_torch_dtype(args.dtype, "train", bfloat16=True),
+        device=args.device,
         shuffle_rng=rng)
     print(json.dumps({"basis_dir": str(args.basis_dir), "rank": pair.rank,
                       "b_dft_shape": list(pair.b_dft.shape),
@@ -229,7 +244,7 @@ def cmd_dnmf(args) -> int:
     from se_snmf_nat_tpu_torch.io.wavio import read_wav_int16
     from se_snmf_nat_tpu_torch.train.dnmf import dnmf_refit
     cfg = preset(args.preset)
-    dtype = _torch_dtype(args.dtype, "dnmf")
+    dtype = _torch_dtype(args.dtype, "dnmf", bfloat16=True)
     x, _ = read_wav_int16(args.clean)
     d, _ = read_wav_int16(args.noise)
     pair = load_basis(args.basis)
@@ -263,7 +278,10 @@ def cmd_campaign(args) -> int:
         cfg = cfg.evolve(
             sep=replace(cfg.sep, r_x=args.rank, r_d=args.rank),
             adapt=replace(cfg.adapt, r_a=min(cfg.adapt.r_a, args.rank)))
-    dtype = _torch_dtype(args.dtype, "campaign")
+    # the reference trains in bfloat16 and then raises in its enhancer's FFT
+    # unless the matmul DFT is on: refused here before the training
+    dtype = _torch_dtype(args.dtype, "campaign without --dft-matmul",
+                         bfloat16=getattr(args, "dft_matmul", False))
     device = args.device
     root = Path(args.basis_root)
     rng = np.random.default_rng(args.seed) if args.seed is not None else None
@@ -556,11 +574,11 @@ def cmd_demo(args) -> int:
         cfg = preset(args.preset)
         if mode == "snmf-fixed":
             cfg = cfg.evolve(adapt=replace(cfg.adapt, adapt_train_n=False))
+        dtype = _torch_dtype(args.dtype, f"demo --mode {mode}")
         speech, noise = _load_bases(args, cfg)
         enh = SnmfEnhancer(
             cfg, speech.b_dft, noise.b_dft, speech.b_dft, noise.b_dft,
-            device=device,
-            dtype=_torch_dtype(args.dtype, f"demo --mode {mode}"))
+            device=device, dtype=dtype)
         sess = StreamingSession(enh, block_frames=args.block)
         # a warm push takes the kernels' first launch (and their build)
         # out of the timed hops; reset() returns to a fresh t=0 state, so

@@ -12,6 +12,9 @@ Precision: the JAX package names TPU matmul precisions
 ``matmul_precision="default"``).  On the card all of them mean full f32:
 TF32 is switched off for both matmuls and cuDNN by ``full_f32()``, which
 every entry point of the port calls.
+
+bfloat16 has no NumPy dtype: ``host_array`` widens it to float32 (exactly)
+where a result leaves the device.
 """
 
 from __future__ import annotations
@@ -49,3 +52,11 @@ def resolve_device(device=None) -> torch.device:
     if device is None:
         return require_cuda()
     return torch.device(device)
+
+
+def host_array(t: torch.Tensor):
+    """A tensor as a NumPy array on the host; bfloat16, which NumPy lacks,
+    is widened to float32 first (every bfloat16 value is a float32 one)."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()

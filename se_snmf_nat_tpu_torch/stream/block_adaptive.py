@@ -32,9 +32,9 @@ from se_snmf_nat_tpu_torch.dsp.windows import sqrt_hann_periodic
 from se_snmf_nat_tpu_torch.enhance.blk_sparse import (
     make_block_sparsity_q_block, noise_bias, snr_column, wiener_gain)
 from se_snmf_nat_tpu_torch.enhance.state import EngineState
-from se_snmf_nat_tpu_torch.kernels.mu import (
-    mu_h_solve_lanes, mu_h_solve_lanes_ref, mu_w_solve_lanes,
-    mu_w_solve_lanes_ref)
+from se_snmf_nat_tpu_torch.kernels.mu import mu_h_solve_lanes, mu_w_solve_lanes
+from se_snmf_nat_tpu_torch.nmf.solver import (
+    SnmfParams, snmf_h_solve_columns, snmf_solve)
 from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_v4_rand_matrix
 
 H_SOLVE_FLR = 1e-9    # the solvers' floor in the reference plan (not
@@ -83,9 +83,10 @@ class BlockStep(nn.Module):
     a tensor, every branch on a frame number is a per-lane select and the
     step reads no device value on the host outside the plain solvers.
 
-    ``h_solver`` and ``w_solver`` say ``"kernel"`` (float32) or ``"plain"``
-    (any other dtype: the kernels are float32 only), chosen here from the
-    dtype."""
+    ``h_solver`` and ``w_solver`` say ``"kernel"`` (float32, beta=1) or
+    ``"plain"``: any other dtype, since the kernels are float32 only, and a
+    beta other than 1, since they are KL only; the plain solves then take
+    the config's beta, as the reference's do."""
 
     def __init__(self, cfg: PipelineConfig, b1_x, b1_d, b2_x=None, b2_d=None,
                  device=None, dtype=torch.float32, k_block: int = 16,
@@ -96,13 +97,12 @@ class BlockStep(nn.Module):
         s, sep, ad, blk = cfg.signal, cfg.sep, cfg.adapt, cfg.blk
         if sep.basis_update_n or sep.basis_update_e:
             raise ValueError("block-adaptive plan: supervised configs only")
-        if cfg.nmf.beta != 1.0:
-            raise NotImplementedError(
-                "the block plan's solves run in the KL kernels (beta=1)")
         self.cfg = cfg
         self.k_block = k_block
-        self.h_solver = self.w_solver = ("kernel" if dtype == torch.float32
-                                         else "plain")
+        self.beta = cfg.nmf.beta
+        self.h_solver = self.w_solver = (
+            "kernel" if dtype == torch.float32 and self.beta == 1.0
+            else "plain")
         self.mel_mode = sep.b_sep_mode == "Mel"
         r_x, r_a = sep.r_x, ad.r_a
         r = r_x + sep.r_d
@@ -158,12 +158,15 @@ class BlockStep(nn.Module):
             y_sep = (ym_mel / vn + 1e-9) * tn
         else:
             y_sep = mag_blk
-        h_solve = (mu_h_solve_lanes if self.h_solver == "kernel"
-                   else mu_h_solve_lanes_ref)
-        a, _ = h_solve(
-            y_sep.transpose(-1, -2).contiguous(), w_sep,
-            self.h0_col.expand(-1, k_block).contiguous(), self.h_iters,
-            self.h_eps, self.sparsity, H_SOLVE_FLR)               # (B, R, K)
+        v_sep = y_sep.transpose(-1, -2).contiguous()
+        h0 = self.h0_col.expand(-1, k_block).contiguous()
+        if self.h_solver == "kernel":
+            a, _ = mu_h_solve_lanes(v_sep, w_sep, h0, self.h_iters,
+                                    self.h_eps, self.sparsity, H_SOLVE_FLR)
+        else:
+            a = snmf_h_solve_columns(v_sep, w_sep, h0, SnmfParams(
+                self.beta, self.sparsity, self.h_iters, self.h_eps,
+                H_SOLVE_FLR)).h                                   # (B, R, K)
         # the l == 1 seed of the noise PSD: the raw DFT spectrum, or the
         # mel spectrum projected back where the reconstructions are
         ym_dft_blk = mag_blk
@@ -286,11 +289,18 @@ class BlockStep(nn.Module):
         head = state.b_d_head
         upf = r_up.to(head.dtype)
         target = torch.matmul(self.melmat, lam_s) if self.mel_mode else lam_s
-        w_solve = (mu_w_solve_lanes if self.w_solver == "kernel"
-                   else mu_w_solve_lanes_ref)
-        w_new, _ = w_solve(
-            target, head * upf[:, None, :], ad_s * upf[:, :, None], any_refit,
-            self.w_iters, self.w_eps, self.sparsity, H_SOLVE_FLR)
+        w0, h0a = head * upf[:, None, :], ad_s * upf[:, :, None]
+        if self.w_solver == "kernel":
+            w_new, _ = mu_w_solve_lanes(target, w0, h0a, any_refit,
+                                        self.w_iters, self.w_eps,
+                                        self.sparsity, H_SOLVE_FLR)
+        else:
+            w_new = snmf_solve(
+                target, w0, h0a, r_up, torch.zeros_like(r_up),
+                SnmfParams(self.beta, self.sparsity, self.w_iters,
+                           self.w_eps, H_SOLVE_FLR),
+                update_w=True, update_h=False, active=any_refit,
+                need_stats=False).w
         merged = torch.where(r_up[:, None, :], w_new, head)
         perm = torch.argsort(r_up.to(torch.int32), dim=-1, stable=True)
         merged = torch.gather(merged, -1,

@@ -39,8 +39,8 @@ from se_snmf_nat_tpu_torch.dsp.stft import (
     analysis_frames, dft_matrices_stacked, overlap_add, synthesis_frames)
 from se_snmf_nat_tpu_torch.enhance.blk_sparse import (
     make_block_sparsity_q_block, noise_bias, snr_column, wiener_gain)
-from se_snmf_nat_tpu_torch.kernels.mu import (
-    mu_h_solve_columns, mu_h_solve_columns_ref)
+from se_snmf_nat_tpu_torch.kernels.mu import mu_h_solve_columns
+from se_snmf_nat_tpu_torch.nmf.solver import SnmfParams, snmf_h_solve_columns
 from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_v4_rand_matrix
 
 H_SOLVE_FLR = 1e-9    # the solver's floor in the reference plan
@@ -58,8 +58,9 @@ def supports_fast_plan(cfg: PipelineConfig) -> bool:
 class FastRun(nn.Module):
     """``run(frames (B, T, L), win (L,)) -> y (B, S)``: the whole-utterance
     non-adaptive plan over B lanes.  ``h_solver`` says ``"kernel"``
-    (float32) or ``"plain"`` (any other dtype: the kernel is float32 only),
-    chosen here from the dtype."""
+    (float32, beta=1) or ``"plain"``: any other dtype, since the kernel is
+    float32 only, and a beta other than 1, since it is KL only; the plain
+    solve then takes the config's beta, as the reference's does."""
 
     def __init__(self, cfg: PipelineConfig, b1_x, b1_d, b2_x, b2_d,
                  device=None, dtype=torch.float32, dft_matmul: bool = False):
@@ -67,13 +68,12 @@ class FastRun(nn.Module):
         if not supports_fast_plan(cfg):
             raise ValueError("config requires the scan plan")
         device = resolve_device(device)
-        if cfg.nmf.beta != 1.0:
-            raise NotImplementedError(
-                "the fast plan's solve runs in the KL kernel (beta=1)")
         s, sep = cfg.signal, cfg.sep
         self.cfg = cfg
         self.dft_matmul = dft_matmul
-        self.h_solver = "kernel" if dtype == torch.float32 else "plain"
+        self.beta = cfg.nmf.beta
+        self.h_solver = ("kernel" if dtype == torch.float32
+                         and self.beta == 1.0 else "plain")
         self.mel_mode = sep.b_sep_mode == "Mel"
 
         def t(a):
@@ -124,12 +124,17 @@ class FastRun(nn.Module):
             y_sep = mag
         # ONE activation solve over every frame of every lane: the (N, F)
         # frame-major spectra go in as the (F, N) view
-        h_solve = (mu_h_solve_columns if self.h_solver == "kernel"
-                   else mu_h_solve_columns_ref)
-        h, _ = h_solve(
-            y_sep.reshape(n_lanes * t, -1).T, self.w_sep, self.h0_col,
-            cfg.nmf.max_iter, cfg.nmf.conv_eps, float(cfg.nmf.sparsity),
-            H_SOLVE_FLR)                                     # (R, B*T)
+        v_sep = y_sep.reshape(n_lanes * t, -1).T
+        if self.h_solver == "kernel":
+            h, _ = mu_h_solve_columns(
+                v_sep, self.w_sep, self.h0_col, cfg.nmf.max_iter,
+                cfg.nmf.conv_eps, float(cfg.nmf.sparsity), H_SOLVE_FLR)
+        else:
+            h = snmf_h_solve_columns(
+                v_sep, self.w_sep, self.h0_col.expand(-1, v_sep.shape[-1]),
+                SnmfParams(self.beta, float(cfg.nmf.sparsity),
+                           cfg.nmf.max_iter, cfg.nmf.conv_eps,
+                           H_SOLVE_FLR)).h                    # (R, B*T)
         a = h.T.reshape(n_lanes, t, -1)                      # (B, T, R)
         xm = torch.matmul(a[..., :r_x], self.bx_rec.T)
         dm = torch.matmul(a[..., r_x:], self.bd_rec.T)

@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from se_snmf_nat_tpu_torch.config import PipelineConfig, default_config
-from se_snmf_nat_tpu_torch.device import full_f32, resolve_device
+from se_snmf_nat_tpu_torch.device import full_f32, host_array, resolve_device
 from se_snmf_nat_tpu_torch.dsp.stft import (
     analysis_frames, dft_matrices_stacked, overlap_add,
     pack_samples_for_upload, stream_frames, stream_frames_torch,
@@ -63,6 +63,12 @@ class SnmfEnhancer(nn.Module):
         super().__init__()
         del dft_precision, idft_precision
         full_f32()
+        self._options = dict(
+            dtype=dtype, matlab_ad_blk_init=matlab_ad_blk_init,
+            frame_bucket=frame_bucket, block_adapt=block_adapt,
+            block_iter_cap=block_iter_cap, dft_matmul=dft_matmul,
+            block_refit_cap=block_refit_cap,
+            block_fixed_iter=block_fixed_iter)
         self.cfg = cfg or default_config()
         s = self.cfg.signal
         self.device = resolve_device(device)
@@ -99,6 +105,15 @@ class SnmfEnhancer(nn.Module):
             self.fast_run = make_fast_run(self.cfg, b1_x, b1_d, b2_x, b2_d,
                                           self.device, dtype, dft_matmul)
         self._state0 = self.engine.init_state(dtype, matlab_ad_blk_init)
+
+    def on_device(self, device) -> "SnmfEnhancer":
+        """This enhancer on ``device``: itself when it is there, else one
+        built anew with the same configuration, bases and options."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        return SnmfEnhancer(self.cfg, *self._bases, device=device,
+                            **self._options)
 
     def _analysis(self, frames: torch.Tensor):
         s = self.cfg.signal
@@ -155,6 +170,24 @@ class SnmfEnhancer(nn.Module):
         return overlap_add(self._synthesis(xm, phase),
                            self.cfg.signal.frameshift), state
 
+    def run_frames(self, frames: torch.Tensor, states=None, t_valid=None):
+        """The batch program on lanes of frames (B, T, L) on this device:
+        the fast plan where it exists and ``states`` is None; else the block
+        plan or the exact loop from ``states`` (batched; B initial states
+        when None), with ``t_valid`` (B host integers) real frames a lane
+        (all T when None).  Returns (y (B, S), state, None on the fast
+        plan)."""
+        n_lanes, t = frames.shape[:2]
+        if self.fast_run is not None and states is None:
+            return self.fast_run(frames, self.win), None
+        if states is None:
+            states = batch_state(self._state0, n_lanes)
+        t_valid = [t] * n_lanes if t_valid is None else t_valid
+        if self.run is not None:
+            return self.run(frames, states,
+                            torch.as_tensor(t_valid, device=self.device))
+        return self._run_exact(frames, states, t_valid)
+
     def _pad_frames(self, frames: np.ndarray) -> np.ndarray:
         t = frames.shape[0]
         t_pad = -(-t // self.frame_bucket) * self.frame_bucket
@@ -183,20 +216,13 @@ class SnmfEnhancer(nn.Module):
         t = true_frames.shape[0]
         frames = torch.as_tensor(self._pad_frames(true_frames),
                                  dtype=self.dtype, device=self.device)
-        st_out = None
-        if (self.fast_run is not None and state is None
-                and not return_state):
-            y = self.fast_run(frames[None], self.win)
-        else:
+        st = None                    # the fast plan where there is one
+        if state is not None or return_state:
             st = batch_state(state if state is not None else self._state0, 1)
-            if self.run is not None:
-                y, st_out = self.run(frames[None], st,
-                                     torch.tensor([t], device=self.device))
-            else:
-                y, st_out = self._run_exact(frames[None], st, [t])
+        y, st_out = self.run_frames(frames[None], st, [t])
         start = self.cfg.delay * s.frameshift
         emit = y[0, start: start + (t - self.cfg.delay) * s.frameshift]
-        emit = emit.cpu().numpy()
+        emit = host_array(emit)
         out = enhanced_quantize(emit) if quantize else emit
         return (out, lane_state(st_out, 0)) if return_state else out
 
@@ -225,7 +251,7 @@ class SnmfEnhancer(nn.Module):
 
         def emit(m):
             y = overlap_add(self._synthesis(m, phase), s.frameshift)
-            y = y[0, start:stop].cpu().numpy()
+            y = host_array(y[0, start:stop])
             return enhanced_quantize(y) if quantize else y
 
         return {"enhanced": emit(xm),
@@ -272,13 +298,7 @@ class SnmfEnhancer(nn.Module):
             frames = stream_frames_torch(
                 smp_dev, torch.as_tensor(nh, device=self.device),
                 s.framelength, shift)
-            if self.fast_run is not None:
-                ys = self.fast_run(frames, self.win)
-            elif self.run is not None:
-                ys, _ = self.run(frames, states,
-                                 torch.as_tensor(tt, device=self.device))
-            else:
-                ys, _ = self._run_exact(frames, states, tt)
+            ys, _ = self.run_frames(frames, states, tt)
             return matlab_int16_write_torch(ys)  # on the device, not fetched
 
         pending = [dispatch(xs[c0: c0 + mb], n_hops_all[c0: c0 + mb],

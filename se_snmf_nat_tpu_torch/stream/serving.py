@@ -39,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from se_snmf_nat_tpu_torch.device import host_array
 from se_snmf_nat_tpu_torch.enhance.state import EngineState, batch_state
 from se_snmf_nat_tpu_torch.io.wavio import enhanced_quantize
 from se_snmf_nat_tpu_torch.stream.block_adaptive import (
@@ -76,16 +77,36 @@ class MultiStreamSession:
     initial state otherwise.  ``block_frames``: frames a tick.
     ``use_block_adaptive`` (with ``block_frames > 1``): full blocks through
     the block-adaptive step with a ring pointer per lane, a partial block
-    through the exact loop.  ``mesh``: lanes over several cards; not ported
-    yet."""
+    through the exact loop.  ``mesh`` (``parallel.mesh.Mesh``): the lanes
+    split over the shards of its 'data' axis (``n_streams`` must divide by
+    it), one sub-fleet a shard on the shard's device: the constructor then
+    returns a ``ShardedFleet`` with that surface (its single-card form,
+    where the shards are logical).  A mesh with one 'data' shard is the
+    plain fleet on that shard's device.  A fleet serves from one process:
+    a mesh with a process group is refused."""
+
+    def __new__(cls, enhancer, n_streams: int, states=None,
+                block_frames: int = 1, use_block_adaptive: bool = False,
+                mesh=None, wire: str = "frames",
+                pipeline_ticks: bool = False):
+        if mesh is None or cls is not MultiStreamSession:
+            return super().__new__(cls)
+        devices = _lane_devices(mesh, int(n_streams))
+        if len(devices) == 1:
+            return super().__new__(cls)
+        return ShardedFleet(enhancer, n_streams, len(devices),
+                            block_frames=block_frames,
+                            use_block_adaptive=use_block_adaptive,
+                            wire=wire, pipeline_ticks=pipeline_ticks,
+                            states=states, devices=devices)
 
     def __init__(self, enhancer, n_streams: int, states=None,
                  block_frames: int = 1, use_block_adaptive: bool = False,
                  mesh=None, wire: str = "frames",
                  pipeline_ticks: bool = False):
         if mesh is not None:
-            raise NotImplementedError(
-                "a fleet over several cards waits for the port of parallel/")
+            enhancer = enhancer.on_device(
+                _lane_devices(mesh, int(n_streams))[0])
         if wire not in ("frames", "samples"):
             raise ValueError(f"wire must be 'frames' or 'samples': {wire}")
         if pipeline_ticks and wire != "samples":
@@ -264,7 +285,7 @@ class MultiStreamSession:
         for partial blocks and broken chains)."""
         enh = self.enh
         frames = self._upload(np.stack(self._pending, axis=1).astype(
-            self._np_dtype))
+            self._np_dtype)).to(enh.dtype)
         mag, phase = enh._analysis(frames)
         l0_dev = self._upload(l0)
         if self._ba_step is not None and k == self._block:
@@ -280,7 +301,7 @@ class MultiStreamSession:
                 self._ba_ptr = ring_ptr0(self.n, self._dev)
             self.state, (xm,) = enh.frame_loop(
                 enh.engine, mag, self.state, [k] * self.n, l0_dev)
-        outs = enh._synthesis(xm, phase).cpu().numpy()    # (B, k, L)
+        outs = host_array(enh._synthesis(xm, phase))     # (B, k, L)
         self._pending = []
         self._apply_deferred_adapt()
         hops, self._recent = _hops_from_frames(self._recent, outs,
@@ -291,7 +312,7 @@ class MultiStreamSession:
         """Pull the overlap-add history off the device before a frames-path
         tick (where the host's copy counts); the device copies go stale."""
         if self._samples and self._dev_synced:
-            self._recent = self._recent_dev.cpu().numpy().copy()
+            self._recent = host_array(self._recent_dev).copy()
             self._dev_synced = False
 
     def _process_hop(self, hops: np.ndarray):
@@ -472,6 +493,19 @@ class MultiStreamSession:
         self._l[lanes] = 0
 
 
+def _lane_devices(mesh, n_streams: int) -> list:
+    """The devices of a fleet's 'data' shards; raises unless the lanes
+    split evenly over them."""
+    if mesh.group is not None:
+        raise ValueError("a fleet serves from one process: give it a mesh "
+                         "without a process group")
+    data = mesh.shape["data"]
+    if n_streams % data:
+        raise ValueError(f"n_streams={n_streams} must divide the mesh data "
+                         f"axis ({data})")
+    return mesh.axis_devices("data")
+
+
 class ShardedFleet:
     """N independent ``MultiStreamSession`` sub-fleets behind the surface of
     one: global lanes [i*b, (i+1)*b) live in shard i, and a fleet tick
@@ -484,27 +518,39 @@ class ShardedFleet:
     slice.  ``reset_lanes``, ``zero_queue_rows``, ``set_adaptation`` and the
     pushes route by global lane index, so a server takes a ``ShardedFleet``
     as it takes a single fleet.  Whether a split helps on a given card is a
-    question for a measurement, not a property of this class."""
+    question for a measurement, not a property of this class.
+
+    ``devices`` (one a sub-fleet): shard i runs on ``devices[i]`` (the
+    enhancer rebuilt there where it is elsewhere), the fleet over a mesh's
+    'data' axis that ``MultiStreamSession(mesh=...)`` builds; default: all
+    on the enhancer's device.  ``states``: the lanes' carried states, split
+    over the shards."""
 
     def __init__(self, enhancer, n_streams: int, sub_fleets: int,
                  block_frames: int = 1, use_block_adaptive: bool = False,
                  mesh=None, wire: str = "frames",
-                 pipeline_ticks: bool = False):
+                 pipeline_ticks: bool = False, states=None, devices=None):
         self.n = int(n_streams)
         self.n_shards = int(sub_fleets)
         if self.n_shards < 1 or self.n % self.n_shards:
             raise ValueError(
                 f"n_streams={self.n} must split evenly over "
                 f"sub_fleets={self.n_shards}")
-        self.lanes_per_shard = self.n // self.n_shards
+        self.lanes_per_shard = b = self.n // self.n_shards
         self.enh = enhancer
-        self.shards = [
-            MultiStreamSession(enhancer, self.lanes_per_shard,
-                               block_frames=block_frames,
-                               use_block_adaptive=use_block_adaptive,
-                               mesh=mesh, wire=wire,
-                               pipeline_ticks=pipeline_ticks)
-            for _ in range(self.n_shards)]
+        devices = devices or [enhancer.device] * self.n_shards
+        if len(devices) != self.n_shards:
+            raise ValueError(f"{len(devices)} devices for {self.n_shards} "
+                             f"sub-fleets")
+        self.shards = []
+        for i, dev in enumerate(devices):
+            enh = enhancer.on_device(dev)
+            st = (None if states is None else EngineState(
+                *(f[i * b:(i + 1) * b].to(enh.device) for f in states)))
+            self.shards.append(MultiStreamSession(
+                enh, b, states=st, block_frames=block_frames,
+                use_block_adaptive=use_block_adaptive, mesh=mesh, wire=wire,
+                pipeline_ticks=pipeline_ticks))
         self._block = self.shards[0]._block
 
     # -- what a server reads (the shards tick together, so shard 0 stands

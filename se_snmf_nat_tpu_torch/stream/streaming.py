@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from se_snmf_nat_tpu_torch.device import host_array
 from se_snmf_nat_tpu_torch.enhance.state import (
     EngineState, batch_state, lane_state)
 from se_snmf_nat_tpu_torch.io.wavio import enhanced_quantize
@@ -147,7 +148,7 @@ class StreamingSession:
                 self._ba_ptr = ring_ptr0(1, enh.device)
             self._state, (xm,) = enh.frame_loop(enh.engine, mag, self._state,
                                                 [k], l0)
-        outs = enh._synthesis(xm, phase)[0].cpu().numpy()
+        outs = host_array(enh._synthesis(xm, phase)[0])
         self._pending = []
         if self._deferred_adapt is not None:
             # a mid-block set_adaptation takes effect at the block boundary;

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from se_snmf_nat_tpu_torch.config import PipelineConfig
-from se_snmf_nat_tpu_torch.device import resolve_device
+from se_snmf_nat_tpu_torch.device import host_array, resolve_device
 from se_snmf_nat_tpu_torch.io.basis import BasisPair, load_basis, save_basis
 from se_snmf_nat_tpu_torch.io.wavio import write_enhanced_wav
 from se_snmf_nat_tpu_torch.nmf.solver import SnmfParams, snmf_solve
@@ -77,7 +77,7 @@ def _solve_full(v: np.ndarray, w0: np.ndarray, cfg: PipelineConfig, dtype,
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)  # noqa
     res = snmf_solve(t(v), t(w0), t(h0), mask, mask, snmf_params(cfg),
                      update_w=True, update_h=True)
-    return res.w.cpu().numpy(), res.h.cpu().numpy(), int(res.iters)
+    return host_array(res.w), host_array(res.h), int(res.iters)
 
 
 def _normalize_plus_eps(b: np.ndarray) -> np.ndarray:

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from se_snmf_nat_tpu_torch.config import PipelineConfig
-from se_snmf_nat_tpu_torch.device import resolve_device
+from se_snmf_nat_tpu_torch.device import host_array, resolve_device
 from se_snmf_nat_tpu_torch.nmf.solver import snmf_solve
 from se_snmf_nat_tpu_torch.train.basis import snmf_params
 from se_snmf_nat_tpu_torch.train.features import training_features
@@ -65,8 +65,9 @@ def dnmf_refit(x: np.ndarray, d: np.ndarray, b: np.ndarray,
     # Eq. (7): W-solves with the inferred activations fixed
     def w_solve(v, w0, h_init):
         rr = w0.shape[1]
-        return snmf_solve(t(v), t(w0), h_init, ones(rr), zeros(rr), params,
-                          update_w=True, update_h=False).w.cpu().numpy()
+        return host_array(snmf_solve(t(v), t(w0), h_init, ones(rr),
+                                     zeros(rr), params, update_w=True,
+                                     update_h=False).w)
 
     b_x = w_solve(vx, b[:, :r_x], a_hat[:r_x])
     b_d = w_solve(vd, b[:, r_x:], a_hat[r_x:])

@@ -302,19 +302,26 @@ def test_bnmf_slot_clear_errors(work):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["enhance", "x.wav"], "--algorithm snmf"),
+    (["enhance", "x.wav"], "--algorithm snmf without --dft-matmul"),
     (["enhance", "x.wav", "--algorithm", "ms"], "--algorithm ms"),
-    (["train", "--db", "d", "--basis-dir", "b"], "train"),
-    (["dnmf", "--clean", "c", "--noise", "n", "--basis", "b", "--output",
-      "o"], "dnmf"),
-    (["demo", "DB0", "--mode", "ms"], "demo --mode ms")])
+    (["enhance", "x.wav", "--algorithm", "imcra"], "--algorithm imcra"),
+    (["campaign", "--speech-db", "s", "--noise-db", "n", "--basis-root",
+      "b", "--out-root", "o", "--targets", "t"],
+     "campaign without --dft-matmul"),
+    (["demo", "DB0", "--mode", "ms"], "demo --mode ms"),
+    (["demo", "DB0", "--mode", "snmf", "--dft-matmul"],
+     "demo --mode snmf")])
 def test_bfloat16_refused_with_a_message(work, argv, what):
-    """No enhancer or trainer of the port runs in bfloat16: the choice is
-    kept and refused by name, never mapped to another dtype."""
+    """Where the reference raises in bfloat16 (its FFT takes float32 or
+    float64; OM-LSA's frame loop mixes dtypes; the demo's session takes no
+    matmul DFT), the port refuses by name and says why, never mapping the
+    choice to another dtype.  Where it runs, so does the port
+    (``tests/test_torch_bfloat16.py``)."""
     argv = [str(work / "db" / "u0.wav") if a == "DB0" else a for a in argv]
     with pytest.raises(SystemExit) as e:
         main([*argv, "--dtype", "bfloat16", *CPU])
     assert "bfloat16" in str(e.value) and what in str(e.value)
+    assert "reference" in str(e.value)
 
 
 def test_grid_needs_a_speech_wav_and_refuses_another_grid(work, tmp_path,

@@ -64,6 +64,10 @@ COPIES = [
     ("runtime/grid.py", ("NOISE_TYPES", "SNR_LIST", "_lp", "synth_noise",
                          "_write")),
     ("cli.py", ("cmd_eval",)),
+    # the process index and count come from torch.distributed
+    ("parallel/distributed.py", ("shard_files_for_host",),
+     {"jax.process_index": "_process_index",
+      "jax.process_count": "_process_count"}),
 ]
 
 # copies kept under a path of the port's own: (reference module, port
@@ -86,12 +90,30 @@ class _NoImports(ast.NodeTransformer):
         return None
 
 
-def _statements(path: Path, names):
+class _Rename(ast.NodeTransformer):
+    """``module.attr`` references of the reference turned into the port's
+    own names (``{"module.attr": "name"}``)."""
+
+    def __init__(self, names):
+        self.names = names
+
+    def visit_Attribute(self, node):
+        if isinstance(node.value, ast.Name):
+            new = self.names.get(f"{node.value.id}.{node.attr}")
+            if new:
+                return ast.Name(id=new, ctx=node.ctx)
+        return self.generic_visit(node)
+
+
+def _statements(path: Path, names, rename=None):
     """{name: ``ast.dump``} of the module's top-level statements (functions,
     classes and assignments to one name by that name, the rest by position)
     without the module docstring and without any import line at any
-    depth."""
+    depth; ``rename`` maps the reference's ``module.attr`` references to
+    the port's names."""
     tree = _NoImports().visit(ast.parse(path.read_text()))
+    if rename:
+        tree = _Rename(rename).visit(tree)
     body = tree.body
     if (body and isinstance(body[0], ast.Expr)
             and isinstance(body[0].value, ast.Constant)):
@@ -110,9 +132,11 @@ def _statements(path: Path, names):
     return {k: out[k] for k in names}
 
 
-@pytest.mark.parametrize("rel,names", COPIES, ids=[c[0] for c in COPIES])
-def test_copy_equals_reference_outside_imports(rel, names):
-    ref = _statements(ROOT / "se_snmf_nat_tpu" / rel, names)
+@pytest.mark.parametrize("rel,names,rename",
+                         [c + (None,) * (3 - len(c)) for c in COPIES],
+                         ids=[c[0] for c in COPIES])
+def test_copy_equals_reference_outside_imports(rel, names, rename):
+    ref = _statements(ROOT / "se_snmf_nat_tpu" / rel, names, rename)
     port = _statements(ROOT / "se_snmf_nat_tpu_torch" / rel, names)
     assert ref, rel
     assert port == ref

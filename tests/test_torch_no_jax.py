@@ -76,6 +76,14 @@ def _run(code: str, cwd=ROOT, env_extra=None):
     "se_snmf_nat_tpu_torch.runtime.runner",
     "se_snmf_nat_tpu_torch.runtime.grid",
     "se_snmf_nat_tpu_torch.runtime.profiling",
+    "se_snmf_nat_tpu_torch.parallel",
+    "se_snmf_nat_tpu_torch.parallel.mesh",
+    "se_snmf_nat_tpu_torch.parallel.distributed",
+    "se_snmf_nat_tpu_torch.parallel.time_shard",
+    "se_snmf_nat_tpu_torch.parallel.train_step",
+    "se_snmf_nat_tpu_torch.parallel.model_shard",
+    "se_snmf_nat_tpu_torch.parallel.scaling",
+    "se_snmf_nat_tpu_torch.parallel.collectives_audit",
 ])
 def test_port_imports_without_jax(module):
     """Importing a port module loads neither ``jax`` nor any module of the
@@ -97,6 +105,7 @@ _FORBIDDEN = re.compile(
 def _port_sources():
     return sorted((ROOT / "se_snmf_nat_tpu_torch").rglob("*.py")) \
         + [ROOT / "chip_smoke.py", ROOT / "tools" / "kernel_variants.py",
+           ROOT / "tests" / "torch_distributed_worker.py",
            ROOT / "tools" / "fft_rows.py"]
 
 
@@ -164,6 +173,9 @@ def _default_device_cases():
     from se_snmf_nat_tpu_torch.convert import pmwf_state_from_jax
     from se_snmf_nat_tpu_torch.runtime import checkpoint, grid
     from se_snmf_nat_tpu_torch import graft_entry
+    from se_snmf_nat_tpu_torch.parallel import make_mesh
+    from se_snmf_nat_tpu_torch.parallel.collectives_audit import audit_all
+    from se_snmf_nat_tpu_torch.parallel.distributed import init_multihost
     cfg, fixed = default_config(), preset("snmf")
     bx, bd = fixtures.synthetic_bases(cfg.signal.n_bins, cfg.sep.r_x,
                                       cfg.sep.r_d)
@@ -246,6 +258,10 @@ def _default_device_cases():
             ROOT / "no_such_file.npz"),
         "graft_entry": lambda: graft_entry.entry(),
         "run_grid": lambda: grid.run_grid(ROOT / "no_such_dir"),
+        "make_mesh": lambda: make_mesh(),
+        "dryrun_multichip": lambda: graft_entry.dryrun_multichip(1),
+        "audit_all": lambda: audit_all(),
+        "init_multihost": lambda: init_multihost("127.0.0.1:1", 1, 0),
     }
 
 
@@ -263,7 +279,8 @@ def _default_device_cases():
     "make_pmwf_streaming_run", "make_pmwf_streaming_run_fast",
     "make_pmwf_batch_run", "make_pmwf_batch_run_fast", "pmwf_stream_init",
     "ntf_solve", "NtfStreamingSession", "pmwf_state_from_jax",
-    "load_pmwf_state", "load_engine_state", "graft_entry", "run_grid"])
+    "load_pmwf_state", "load_engine_state", "graft_entry", "run_grid",
+    "make_mesh", "dryrun_multichip", "audit_all", "init_multihost"])
 def test_entry_point_without_device_raises_without_a_card(entry):
     """``device=None`` means the card: without one every entry point raises
     and none carries on on the CPU."""

@@ -18,6 +18,7 @@ from se_snmf_nat_tpu.stream.serving import MultiStreamSession as JFleet
 from se_snmf_nat_tpu_torch import fixtures
 from se_snmf_nat_tpu_torch.convert import config_from_jax
 from se_snmf_nat_tpu_torch.enhance.state import EngineState, lane_state
+from se_snmf_nat_tpu_torch.parallel.mesh import make_mesh
 from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
 from se_snmf_nat_tpu_torch.stream.serving import (
     MultiStreamSession, ShardedFleet)
@@ -442,9 +443,11 @@ def test_sharded_fleet_routes_the_lane_lifecycle_globally(setup):
     (dict(wire="packets"), ValueError),
     (dict(wire="samples", block_frames=8, use_block_adaptive=True),
      ValueError),
-    (dict(mesh=object()), NotImplementedError),
+    (dict(mesh="4 shards"), ValueError),
 ])
 def test_constructor_refusals(setup, kw, exc):
+    if "mesh" in kw:       # 2 lanes do not split over 4 'data' shards
+        kw = dict(kw, mesh=make_mesh((4, 1), devices=["cpu"] * 4))
     with pytest.raises(exc):
         MultiStreamSession(setup[3], 2, **kw)
     with pytest.raises(exc):
