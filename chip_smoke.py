@@ -205,10 +205,23 @@ before printing any result.
     and both TP solves equal to their unsharded forms, the group destroyed
     after; ``audit_all`` on 8 logical shards of the card;
     ``dryrun_multichip(1)``; the phase's seconds;
-15. a JSON line of the kernels (``launches``: the sum over the paths'
-    first runs, each counted from zero, also given by path), the card's
-    name and power limit, and the result line ``{"ok": true, "device":
-    {...}}`` last.
+15. bench: ``python -m se_snmf_nat_tpu_torch bench`` as a process of its
+    own at full width (the headline plan at B=64, K3's MU rate against the
+    GEMM-only chain, the matmul-DFT analysis), every key finite and
+    positive, K1, K2 and K3 each launched (its ``launches``), the
+    headline audio-s/s printed beside phase 4's warm B=64 figure; ``bench
+    --latency`` likewise (K1 and K2 launched); then, in this process
+    through ``bench``'s functions at reduced sizes, ``--serving`` (fleets
+    of 16, 64 and 128, 10 ticks; device ceilings at 64 and 128 lanes and 2
+    x 64; the shipped path at 1 x 128 and 2 x 64), ``--campaign`` (B=64,
+    2 reps), ``--train-rate``, ``--multichannel`` (B=8, one call a row),
+    ``--campaign-mixed`` (16 files) and ``--trace``, each line with the
+    card's name and power limit; the phase's seconds;
+16. a JSON line of the kernels (``launches``: the sum over the paths'
+    first runs, each counted from zero, also given by path; the path
+    ``bench`` is the two processes of phase 15, each counted from zero in
+    its own process), the card's name and power limit, and the result
+    line ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -224,23 +237,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from se_snmf_nat_tpu_torch.runtime.profiling import bound, card_line, cuda_ms
+
 H_REPLACES = "se_snmf_nat_tpu/kernels/mu_pallas.py:122"   # _h_solve_kernel
 W_REPLACES = "se_snmf_nat_tpu/kernels/mu_pallas.py:40"    # _w_solve_kernel
 C_REPLACES = "se_snmf_nat_tpu/kernels/mu_pallas.py:172"   # _h_cols_kernel
 RTOL = 1e-4
-PEAK_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
-PEAK_BYTES = 3.35e12        # H100 SXM device memory
 NO_LIBRARY = ("library_ms null: no single PyTorch call computes an iterative "
               "MU solve")
 N_UTT = 16
 N_SAMPLES = 54880           # 343 hops + 4 flush frames = 347 frames
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -252,26 +258,6 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     big = ref.abs() > 1e-6 * ref.abs().max()
     rel = ((got - ref).abs()[big] / ref.abs()[big]).max().item()
     return rel, (got - ref).abs().max().item()
-
-
-def cuda_ms(fn, reps: int = 10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def bound(flops: float, n_bytes: float) -> tuple[float, str]:
-    """(bound ms, the resource that sets it): the larger of the operations
-    over the float32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def in_turns(kernel_fn, plain_fn):
@@ -3274,6 +3260,139 @@ def check_parallel(mu, dev, card):
     return path
 
 
+HEADLINE_KEYS = ("value", "audio_s_per_call", "mu_iters_per_s",
+                 "mu_gemm_tflops", "mu_gemm_mfu", "mu_ceiling_tflops",
+                 "mu_roofline_frac", "stft_frames_per_s", "stft_tflops",
+                 "stft_hbm_gbps", "stft_hbm_frac")
+LATENCY_KEYS = ("device_ms_per_hop", "singlehop_wall_ms", "hop_budget_ms",
+                "n_frames")
+
+
+def finite_keys(name, rep, keys):
+    """Every key present, a finite positive number."""
+    bad = [k for k in keys if not isinstance(rep.get(k), (int, float))
+           or not np.isfinite(rep[k]) or rep[k] <= 0]
+    if bad:
+        raise AssertionError(f"bench {name}: keys missing, not finite or "
+                             f"not positive: {bad} in {rep}")
+
+
+def bench_process(*flags) -> tuple[dict, float]:
+    """``python -m se_snmf_nat_tpu_torch bench <flags>`` on the card as a
+    process of its own: its JSON line and the process's seconds."""
+    out, _, secs = cli_process(["bench", *flags])
+    return last_json(out.decode()), secs
+
+
+def check_bench(mu, dev, card, phase4_b64):
+    """Phase 15: the ``bench`` command on the card.  The headline line and
+    ``--latency`` as processes of their own at full width (every key
+    finite, K1-K3 launched), then ``--serving``, ``--campaign``,
+    ``--train-rate``, ``--multichannel``, ``--campaign-mixed`` and
+    ``--trace`` in this process through their functions at reduced sizes.
+    Returns the launches of the two processes (the path ``bench``)."""
+    import tempfile
+
+    from se_snmf_nat_tpu_torch import bench
+    t_phase = time.perf_counter()
+    head, secs = bench_process()
+    finite_keys("headline", head, HEADLINE_KEYS)
+    for k in ("metric", "unit", "mu_solver_shape", "card", "input",
+              "launches", "timing"):
+        if k not in head:
+            raise AssertionError(f"bench headline: no {k!r} in {head}")
+    launches = dict(head["launches"])
+    if min(launches.values()) < 1:
+        raise AssertionError(f"bench headline launched K1, K2 and K3 each "
+                             f"at least once: {launches}")
+    print(f"bench (process, {secs:.1f} s): {json.dumps(head)}")
+    print(f"bench headline {head['value']:.1f} audio-s/s (B=64, one "
+          f"enhance_batch a batch, best of 3 windows of 20) beside phase 4's "
+          f"warm B=64 {phase4_b64:.1f} (best of 3 calls); K3 "
+          f"{head['mu_iters_per_s']:.4g} column-iterations/s, "
+          f"{head['mu_gemm_tflops']:.2f} TFLOP/s, "
+          f"{head['mu_roofline_frac']:.3f} of the GEMM-only chain "
+          f"({head['mu_ceiling_tflops']:.2f} TFLOP/s); STFT "
+          f"{head['stft_frames_per_s']:.4g} frames/s, "
+          f"{head['stft_hbm_frac']:.3f} of 3.35 TB/s ({card})")
+    lat, secs = bench_process("--latency")
+    finite_keys("--latency", lat, LATENCY_KEYS)
+    if not np.isfinite(lat["dispatch_overhead_ms"]):     # a difference
+        raise AssertionError(f"--latency: {lat}")
+    if not lat["launches"]["K1"] or not lat["launches"]["K2"]:
+        raise AssertionError(f"--latency runs K1 and K2: {lat['launches']}")
+    print(f"bench --latency (process, {secs:.1f} s): {json.dumps(lat)} "
+          f"({card})")
+    for k in launches:
+        launches[k] += lat["launches"][k]
+
+    t0 = time.perf_counter()
+    srv = bench.run_serving(
+        dev, fleet_sizes=(16, 64, 128), n_ticks=10, ceiling_sizes=(64, 128),
+        n_inner=10, shard_plans=((2, 64),), product_plans=((1, 128), (2, 64)),
+        product_ticks=10)
+    if not srv["launches"]["K1"] or not srv["launches"]["K2"]:
+        raise AssertionError(f"--serving runs K1 and K2: {srv['launches']}")
+    rows = [(blk["block_frames"], blk["pipelined"], r)
+            for blk in srv["blocks"] for r in blk["table"]]
+    ticks = [r["tick_ms"] for _, _, r in rows]
+    ticks += [r["device_tick_ms"] for r in srv["device_ceiling"]["table"]]
+    ticks += [r["device_round_ms"]
+              for r in srv["device_ceiling_sharded"]["table"]]
+    ticks += [r["tick_ms"] for r in srv["product_path_sharded"]["table"]]
+    if not all(np.isfinite(t) and t > 0 for t in ticks):
+        raise AssertionError(f"--serving: a tick time is not finite: {srv}")
+    print(f"bench --serving ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(srv)} ({card})")
+
+    t0 = time.perf_counter()
+    camp = bench.run_campaign(dev, campaign_batch=64, reps=2)
+    for k, row in camp.items():
+        if isinstance(row, dict) and "call_s" in row:
+            finite_keys(f"--campaign {k}", row, ("call_s",
+                                                 "audio_s_per_s_e2e"))
+    print(f"bench --campaign ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(camp)} ({card})")
+
+    t0 = time.perf_counter()
+    tr = bench.run_train_rate(dev)
+    finite_keys("--train-rate", tr, (
+        "solve_wall_s", "mu_iters", "train_mu_iters_per_s",
+        "train_gemm_tflops", "train_ceiling_tflops", "train_roofline_frac"))
+    print(f"bench --train-rate ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(tr)} ({card})")
+
+    t0 = time.perf_counter()
+    mc = bench.run_multichannel(dev, lane_grid=(8,), fast_grid=(8,),
+                                stream_calls=1, n_hops=80)
+    if not all(row["output_finite"] for row in mc.values()
+               if isinstance(row, dict) and "output_finite" in row):
+        raise AssertionError(f"--multichannel: non-finite output: {mc}")
+    print(f"bench --multichannel ({time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(mc)} ({card})")
+
+    t0 = time.perf_counter()
+    mixed = bench.run_campaign_mixed(dev, n_files=16, b_sz=8)
+    for tag in ("length_sorted", "unsorted"):
+        if mixed[tag]["warm"]["processed"] != 16:
+            raise AssertionError(f"--campaign-mixed {tag}: {mixed[tag]}")
+    if mixed["rerun_skip_all"]["skipped"] != 16:
+        raise AssertionError(f"--campaign-mixed rerun: {mixed}")
+    print(f"bench --campaign-mixed, 16 files ({time.perf_counter() - t0:.1f} "
+          f"s): {json.dumps(mixed)} ({card})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tr = bench.run_trace(tmp, dev)
+        if tr["n_files"] < 1:
+            raise AssertionError(f"--trace wrote nothing: {tr}")
+        print(f"bench --trace ({time.perf_counter() - t0:.1f} s): "
+              f"{json.dumps(tr)}")
+    print(f"bench phase: {time.perf_counter() - t_phase:.1f} s, the two "
+          f"processes' launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU path here",
@@ -3355,6 +3474,7 @@ def main() -> int:
         raise AssertionError(f"card-to-CPU correlation {min(corrs)} < 0.99")
 
     audio_s = N_SAMPLES / cfg.signal.fs
+    warm_rate = {}
     for b in (N_UTT, HEADLINE_BATCH):
         batch = [fixtures.noisy_utterance(N_SAMPLES, seed=100 + i)
                  for i in range(b)]
@@ -3370,6 +3490,7 @@ def main() -> int:
             enh.enhance_batch(batch, micro_batch=None)
             times.append(time.perf_counter() - t0)
         best = min(times)
+        warm_rate[b] = b * audio_s / best
         print(f"main path warm enhance_batch B={b} ({b * audio_s:.2f} audio "
               f"s): best {best:.4f} s of {[round(x, 4) for x in times]}, "
               f"{b * audio_s / best:.1f} audio-s/s ({card})")
@@ -3408,18 +3529,22 @@ def main() -> int:
     # path), an NCCL world of one, dryrun_multichip(1)
     parallel_launches = check_parallel(mu, dev, card)
 
-    # 15. results: each path's launches were counted from zero around its
+    # 15. the bench command (its two processes are the path)
+    bench_launches = check_bench(mu, dev, card, warm_rate[HEADLINE_BATCH])
+
+    # 16. results: each path's launches were counted from zero around its
     # own first run (headline, fast plan, exact plan, the hop-by-hop stream,
     # the first fleet, the server's life, the three plans on the trained
     # dictionaries, the baselines' and the multichannel path's whole phase,
-    # every in-process command of phase 13, and the first time shard)
+    # every in-process command of phase 13, the first time shard, and the
+    # two bench processes of phase 15, each from zero in its own process)
     by_path = {"headline": launches, "fast": {"K1": 0, "K2": 0,
                                               "K3": c_launches},
                "exact": exact_launches, "streaming": stream_launches,
                "fleet": fleet_launches, "server": server_launches,
                "trained": trained_launches, "baselines": baseline_launches,
                "multichannel": multichannel_launches, "cli": cli_launches,
-               "parallel": parallel_launches}
+               "parallel": parallel_launches, "bench": bench_launches}
 
     def entry(key, name, source, replaces, per_batch, err, timing, **more):
         ms, plain, bnd, by = timing

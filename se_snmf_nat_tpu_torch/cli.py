@@ -1,5 +1,5 @@
 """Command-line entry points of the port (counterpart of the reference
-package's ``cli.py``, its ``bench`` command aside).
+package's ``cli.py``).
 
 Replaces the reference's top-level scripts:
   enhance   — filewise_run_IS16.m / run_ntf_sep_RT.m / run_IMCRA.m
@@ -12,6 +12,9 @@ Replaces the reference's top-level scripts:
   serve     — the TCP enhancement server (many streams on one card)
   demo      — the SE_GUI.m real-time loop as a terminal program
   eval      — the golden-output comparison (SURVEY §4); prints JSON metrics
+  bench     — the measurements of ``bench.py`` (headline line, latency,
+              serving, training rate, campaigns, multichannel, scaling,
+              collectives, a trace, the quality batteries); one JSON line
 
 Usage: python -m se_snmf_nat_tpu_torch <command> [options]
 
@@ -868,6 +871,57 @@ def cmd_serve(args) -> int:
     return 0
 
 
+_GOLDEN_MODES = (("quality", "--quality"),
+                 ("quality_sharded", "--quality-sharded"),
+                 ("pareto", "--pareto"))
+
+
+def cmd_bench(args) -> int:
+    """One JSON line of the mode the flags name (the first of the
+    reference's order), the headline line without one.  The modes that
+    score against the reference's golden wavs need ``--reference-root``;
+    the others run on synthetic inputs without it."""
+    from se_snmf_nat_tpu_torch import bench
+    dev, root = args.device, args.reference_root
+    for attr, flag in _GOLDEN_MODES:
+        if getattr(args, attr) and not root:
+            raise SystemExit(
+                f"bench {flag} scores against the reference's golden wavs: "
+                f"give --reference-root <the reference repository's root>")
+    if args.train_rate:
+        rep = bench.run_train_rate(dev, root)
+    elif args.pareto:
+        rep = bench.run_pareto(dev, root,
+                               headline_margin=args.headline_margin)
+    elif args.quality:
+        rep = bench.run_quality(dev, root)
+    elif args.quality_sharded:
+        rep = bench.run_quality_sharded(dev, root)
+    elif args.trace:
+        rep = bench.run_trace(args.trace, dev, root)
+    elif args.campaign:
+        rep = bench.run_campaign(dev, root,
+                                 campaign_batch=args.campaign_batch)
+    elif args.campaign_mixed:
+        rep = bench.run_campaign_mixed(dev, root)
+    elif args.latency:
+        rep = bench.run_latency(dev, root)
+    elif args.serving:
+        rep = bench.run_serving(dev, root)
+    elif args.scaling:
+        rep = bench.run_scaling(dev, root,
+                                per_device_batch=args.per_device_batch)
+    elif args.multichannel:
+        rep = bench.run_multichannel(dev, root)
+    elif args.collectives:
+        rep = bench.run_collectives(dev,
+                                    per_device_batch=args.per_device_batch)
+    else:
+        rep = bench.run_headline(dev, root)
+    print(json.dumps(rep))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="se_snmf_nat_tpu_torch",
@@ -1039,6 +1093,67 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("--want", required=True)
     v.add_argument("--clean", help="clean reference for segSNR/LSD/STOI")
     v.set_defaults(fn=cmd_eval)
+
+    b = sub.add_parser("bench", help="run the headline benchmark")
+    b.add_argument("--scaling", action="store_true",
+                   help="measure DP scaling over the cards of the process")
+    b.add_argument("--latency", action="store_true",
+                   help="per-hop device time of the exact plan beside a "
+                        "single-hop push's wall time (real-time budget "
+                        "check)")
+    b.add_argument("--serving", action="store_true",
+                   help="measure max concurrent real-time streams "
+                        "(lockstep MultiStreamSession fleet)")
+    b.add_argument("--per-device-batch", type=int, default=16)
+    b.add_argument("--trace",
+                   help="capture a torch.profiler trace of one enhancement "
+                        "call into this directory (a Chrome trace: "
+                        "Perfetto or chrome://tracing)")
+    b.add_argument("--quality", action="store_true",
+                   help="run the quality battery over the reference's "
+                        "fixtures (every algorithm family; golden "
+                        "agreement for the SNMF plans); needs "
+                        "--reference-root")
+    b.add_argument("--quality-sharded", action="store_true",
+                   help="quality rows for the sharded execution plans "
+                        "(time-shard full waveform, TP H-solve) vs the "
+                        "unsharded plan and golden, on 8 logical shards of "
+                        "the device; needs --reference-root")
+    b.add_argument("--train-rate", action="store_true",
+                   help="measure the basis-training inner solve "
+                        "(full W+H SNMF) wall time and MU iterations/s")
+    b.add_argument("--campaign-mixed", action="store_true",
+                   help="mixed-length campaign rehearsal: 80 synthetic "
+                        "2-12 s files through the BatchRunner batch plan; "
+                        "files/s, padded widths, padding waste "
+                        "(length-sorted vs unsorted chunking)")
+    b.add_argument("--campaign", action="store_true",
+                   help="end-to-end campaign-path throughput (wall time of "
+                        "enhance_batch INCLUDING host<->device transfers) "
+                        "for the SNMF/MS/IMCRA batch entries")
+    b.add_argument("--campaign-batch", type=int, default=64)
+    b.add_argument("--multichannel", action="store_true",
+                   help="measure the PMWF beamformer and GIST-NTF solver "
+                        "throughput (6-channel load)")
+    b.add_argument("--collectives", action="store_true",
+                   help="collective audit of every parallel program "
+                        "(all-reduces and bytes a step, recorded around "
+                        "mesh.psum)")
+    b.add_argument("--pareto", action="store_true",
+                   help="capture the K x iter-cap speed/quality Pareto "
+                        "surface of the block-adaptive plan (golden corr "
+                        "+ LSD on both fixtures per point); needs "
+                        "--reference-root")
+    b.add_argument("--headline-margin", type=float, default=0.004,
+                   help="required min-corr margin above the 0.99 golden "
+                        "gate for the headline pick (--pareto)")
+    b.add_argument("--reference-root",
+                   help="the reference repository's root: its M03 clip and "
+                        "pretrained dictionaries (and, for the quality "
+                        "modes, golden wavs) in place of the synthetic "
+                        "inputs")
+    _device_arg(b)
+    b.set_defaults(fn=cmd_bench)
     return p
 
 

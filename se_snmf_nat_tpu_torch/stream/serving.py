@@ -228,16 +228,7 @@ class MultiStreamSession:
         else:
             hops_up = np.asarray(hops, self._np_dtype)
         hops_dev = self._upload(hops_up).to(enh.dtype)     # (B, K, shift)
-        ext = torch.cat([self._queue_dev, hops_dev.reshape(self.n, -1)],
-                        dim=1)
-        frames = ext.unfold(1, s.framelength, shift)[:, 1:]   # (B, K, L)
-        self._queue_dev = ext[:, -s.framelength:].contiguous()
-        mag, phase = enh._analysis(frames)
-        self.state, (xm,) = enh.frame_loop(
-            enh.engine, mag, self.state, [k] * self.n, self._upload(l0))
-        out_hops, self._recent_dev = _hops_from_frames(
-            self._recent_dev, enh._synthesis(xm, phase), shift)
-        pcm = matlab_int16_write_torch(out_hops.reshape(self.n, -1))
+        pcm = self._device_tick(hops_dev, self._upload(l0))
         self._pending = []
         self._apply_deferred_adapt()
         # the host history is stale now; the device copy holds until a
@@ -254,6 +245,27 @@ class MultiStreamSession:
             buf, done = pcm, None
         prev, self._inflight = self._inflight, (buf, done, l0, k)
         return self._settle(prev)
+
+    def _device_tick(self, hops_dev: torch.Tensor,
+                     l0_dev: torch.Tensor) -> torch.Tensor:
+        """The device half of a samples-wire tick, with no host copy:
+        hops (B, K, frameshift) and the lanes' first frame numbers l0 (B,)
+        on the device; advances the device queue, the state and the
+        overlap-add history and returns the int16-written PCM (B, K *
+        frameshift), still on the device."""
+        s, enh = self._s, self.enh
+        shift = s.frameshift
+        ext = torch.cat([self._queue_dev, hops_dev.reshape(self.n, -1)],
+                        dim=1)
+        frames = ext.unfold(1, s.framelength, shift)[:, 1:]   # (B, K, L)
+        self._queue_dev = ext[:, -s.framelength:].contiguous()
+        mag, phase = enh._analysis(frames)
+        self.state, (xm,) = enh.frame_loop(
+            enh.engine, mag, self.state, [hops_dev.shape[1]] * self.n,
+            l0_dev)
+        out_hops, self._recent_dev = _hops_from_frames(
+            self._recent_dev, enh._synthesis(xm, phase), shift)
+        return matlab_int16_write_torch(out_hops.reshape(self.n, -1))
 
     def _settle(self, tick) -> list[tuple[np.ndarray, np.ndarray]]:
         """The emissions of a pipelined tick, once its copy has landed."""

@@ -1,5 +1,6 @@
 """The port's command line (``python -m se_snmf_nat_tpu_torch``) on the CPU
-(``--device cpu``), every command but the JAX package's ``bench``: in
+(``--device cpu``); ``bench``'s parser and refusals here, its modes in
+``tests/test_torch_bench.py``: in
 float64 ``enhance`` (three plans, a file and a directory) and ``separate``
 write the int16 of the JAX package's library entry points (the JAX CLI
 cannot run ``snmf`` without the reference recordings: its ``_load_bases``
@@ -11,6 +12,7 @@ every mode against the port's own session or one-shot run, and its ``ms``,
 ``bnmf`` and ``pmwf`` modes against the JAX CLI's ``demo``; ``serve`` as a
 process; the graft entry point against the JAX package's."""
 
+import argparse
 import builtins
 import json
 import os
@@ -625,14 +627,45 @@ def _no_cuda():
      "o"],
     ["campaign", "--speech-db", "s", "--noise-db", "n", "--basis-root", "b",
      "--out-root", "o", "--targets", "t"],
-    ["grid", "--workspace", "w"], ["serve"], ["demo", "x.wav"]],
-    ids=lambda a: a[0])
+    ["grid", "--workspace", "w"], ["serve"], ["demo", "x.wav"],
+    ["bench"], ["bench", "--serving"], ["bench", "--quality"]],
+    ids=lambda a: "-".join(a[:2]))
 def test_every_command_needs_the_card_unless_told(argv):
     """Without a card and without ``--device cpu`` a command stops with
     ``require_cuda()``'s message before it reads anything."""
     _no_cuda()
     with pytest.raises(SystemExit, match="CUDA is not available"):
         main(argv)
+
+
+def _bench_options(parser) -> dict:
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return {o: a.default for a in sub.choices["bench"]._actions
+            for o in a.option_strings}
+
+
+def test_bench_parser_has_every_reference_option():
+    """``bench`` takes every option of the reference's ``bench`` with its
+    default, plus ``--device`` and ``--reference-root``."""
+    from se_snmf_nat_tpu.cli import build_parser as j_build_parser
+
+    from se_snmf_nat_tpu_torch.cli import build_parser
+    got, want = _bench_options(build_parser()), _bench_options(
+        j_build_parser())
+    assert set(got) == set(want) | {"--device", "--reference-root"}
+    assert {o: got[o] for o in want} == want
+
+
+@pytest.mark.parametrize("flag", ["--quality", "--quality-sharded",
+                                  "--pareto"])
+def test_bench_golden_modes_need_the_reference_root(flag):
+    """The modes that score against the reference's golden wavs refuse
+    without ``--reference-root`` and name it; they never score against a
+    stand-in."""
+    with pytest.raises(SystemExit, match="--reference-root") as e:
+        main(["bench", flag, *CPU])
+    assert flag in str(e.value)
 
 
 def test_module_without_device_exits_with_require_cuda_message(work,

@@ -84,6 +84,7 @@ def _run(code: str, cwd=ROOT, env_extra=None):
     "se_snmf_nat_tpu_torch.parallel.model_shard",
     "se_snmf_nat_tpu_torch.parallel.scaling",
     "se_snmf_nat_tpu_torch.parallel.collectives_audit",
+    "se_snmf_nat_tpu_torch.bench",
 ])
 def test_port_imports_without_jax(module):
     """Importing a port module loads neither ``jax`` nor any module of the
@@ -143,7 +144,7 @@ def test_require_cuda_raises_without_a_card():
 def _default_device_cases():
     import numpy as np
 
-    from se_snmf_nat_tpu_torch import fixtures
+    from se_snmf_nat_tpu_torch import bench, fixtures
     from se_snmf_nat_tpu_torch.config import default_config, preset
     from se_snmf_nat_tpu_torch.convert import bases_to_torch, state_from_jax
     from se_snmf_nat_tpu_torch.enhance.engine import Engine, make_engine
@@ -262,6 +263,16 @@ def _default_device_cases():
         "dryrun_multichip": lambda: graft_entry.dryrun_multichip(1),
         "audit_all": lambda: audit_all(),
         "init_multihost": lambda: init_multihost("127.0.0.1:1", 1, 0),
+        "bench_headline": lambda: bench.run_headline(),
+        "bench_latency": lambda: bench.run_latency(),
+        "bench_serving": lambda: bench.run_serving(),
+        "bench_train_rate": lambda: bench.run_train_rate(),
+        "bench_campaign": lambda: bench.run_campaign(),
+        "bench_campaign_mixed": lambda: bench.run_campaign_mixed(),
+        "bench_multichannel": lambda: bench.run_multichannel(),
+        "bench_scaling": lambda: bench.run_scaling(),
+        "bench_collectives": lambda: bench.run_collectives(),
+        "bench_trace": lambda: bench.run_trace(str(ROOT / "no_such_dir")),
     }
 
 
@@ -280,7 +291,10 @@ def _default_device_cases():
     "make_pmwf_batch_run", "make_pmwf_batch_run_fast", "pmwf_stream_init",
     "ntf_solve", "NtfStreamingSession", "pmwf_state_from_jax",
     "load_pmwf_state", "load_engine_state", "graft_entry", "run_grid",
-    "make_mesh", "dryrun_multichip", "audit_all", "init_multihost"])
+    "make_mesh", "dryrun_multichip", "audit_all", "init_multihost",
+    "bench_headline", "bench_latency", "bench_serving", "bench_train_rate",
+    "bench_campaign", "bench_campaign_mixed", "bench_multichannel",
+    "bench_scaling", "bench_collectives", "bench_trace"])
 def test_entry_point_without_device_raises_without_a_card(entry):
     """``device=None`` means the card: without one every entry point raises
     and none carries on on the CPU."""
