@@ -23,8 +23,11 @@ before printing any result.
    ptxas's registers and spills, and two launches on the same inputs must
    give the same bits.  Both also run at the exact plan's and the fleet's
    shapes: K1 with one column a lane (N=1, cap 100, eps 1e-3, a dictionary
-   of its own a lane, real spectra) at B=8 (the server's), 16, 64 and 128,
-   with the trip counts compared column by column; K2 at cap 100 and eps
+   of its own a lane, real spectra: the narrow path, its clusters resident
+   and waves printed) at B=8 (the server's), 16, 64 and 128, with the trip
+   counts compared column by column, held to the plain version and to the
+   narrow schedule's twin, and at B=64 and 128 lanes solved alone against
+   the same lanes in the batch (bit-identical); K2 at cap 100 and eps
    1e-3 with two lanes inactive at B=16, 64 and 128 (and at cap 22 at
    B=128), held, relaunched and timed like the rest.  K3 runs
    on the fast plan's own spectra, as the
@@ -77,7 +80,8 @@ before printing any result.
    block-adaptive fleet (B=64, 88 frames a tick; its lanes 0 and 63 against
    solo block-adaptive sessions likewise); ``ShardedFleet`` 2 x 64
    against two fleets of 64 and beside one fleet of 128; a profile of a
-   few ticks at B=64; and float64 on the card (the plain solvers, chosen
+   few ticks at B=64 and of one tick's device half at B=256 (K1, K2 and
+   the rest); and float64 on the card (the plain solvers, chosen
    from the dtype) against the float64 CPU run on all three plans;
 9. server: ``EnhanceServer`` (8 lanes, ``block_frames=8``) on loopback on
    the card, three concurrent clients and a fourth on a freed lane, each
@@ -243,6 +247,7 @@ H_REPLACES = "se_snmf_nat_tpu/kernels/mu_pallas.py:122"   # _h_solve_kernel
 W_REPLACES = "se_snmf_nat_tpu/kernels/mu_pallas.py:40"    # _w_solve_kernel
 C_REPLACES = "se_snmf_nat_tpu/kernels/mu_pallas.py:172"   # _h_cols_kernel
 RTOL = 1e-4
+K1_KERNELS = ("h_lanes_kernel", "h_narrow_kernel")   # wide, narrow path
 NO_LIBRARY = ("library_ms null: no single PyTorch call computes an iterative "
               "MU solve")
 N_UTT = 16
@@ -323,8 +328,9 @@ def check_h_kernel(mu, dev, rng, card, log):
     for b in (16, 64):
         sh = mu.h_solve_lanes_shape(b, 513, 200, 88)
         lf = sh["lanes_full"]
-        print(f"kernel K1 launch B={b} F=513 R=200 K=88: clusters of "
-              f"{sh['cluster']} blocks x {sh['threads']} threads, "
+        print(f"kernel K1 launch B={b} F=513 R=200 K=88: {sh['path']} "
+              f"path, clusters of {sh['cluster']} blocks x "
+              f"{sh['threads']} threads, "
               f"{sh['smem_bytes']} B shared memory a block, "
               f"{sh['resident_clusters']} clusters resident at once; "
               f"{lf} lanes in groups of {sh['group']}, the "
@@ -741,18 +747,20 @@ def time_w_on_real_refits(mu, enh, batch, card):
               f"share {bnd / min(k1, k2):.1%} ({card})")
 
 
-def check_h_kernel_one_column(mu, dev, card):
+def check_h_kernel_one_column(mu, dev, card, log):
     """K1 at the exact plan's and the fleet's shape: one column a lane
-    (F=513, R=200, N=1, cap 100, eps 1e-3) at the server's B=8 and at B=16,
-    B=64 and B=128 (lanes 64 and up take other frames of the 64
-    utterances), each lane on its own
-    dictionary
-    (the structured bases with the 50 head columns of the noise part
-    rescaled per lane, as a refit leaves them) and one frame of a noisy
-    utterance's spectrum.  Held to the plain version with the trip counts
-    compared column by column, launched twice (bit-identical), timed in
-    turns with the plain version, beside the bound of this run's trips.
-    Returns {B: (max abs error, ms, plain ms, bound ms, bound by)}."""
+    (F=513, R=200, N=1, cap 100, eps 1e-3), the narrow path, at the server's
+    B=8 and at B=16, B=64 and B=128 (lanes 64 and up take other frames of
+    the 64 utterances), each lane on its own dictionary (the structured
+    bases with the 50 head columns of the noise part rescaled per lane, as
+    a refit leaves them) and one frame of a noisy utterance's spectrum.
+    Prints the path, the clusters resident at once and the waves; held to
+    the plain version and to the narrow schedule's twin with the trip
+    counts compared column by column, launched twice (bit-identical), at
+    B=64 and 128 each of four lanes solved alone (the same bits as in the
+    batch), timed in turns with the plain version, beside the bound of
+    this run's trips.  Returns {B: (max abs error, ms, plain ms, bound ms,
+    bound by, path)}."""
     from se_snmf_nat_tpu_torch import fixtures
     from se_snmf_nat_tpu_torch.config import default_config
     from se_snmf_nat_tpu_torch.utils.matlab_compat import (
@@ -766,14 +774,20 @@ def check_h_kernel_one_column(mu, dev, card):
     spectra = fast_plan_spectra(cfg, xs, dev)             # (513, 64 * 384)
     n_t = spectra.shape[1] // 64
     cols = lambda same, h: same[:, None, :].expand_as(h)   # noqa: E731
+    print(f"kernel K1 narrow path ptxas: "
+          f"{' | '.join(ptxas_lines(log, 'h_narrow_kernel'))}")
     out = {}
     for b in (8, 16, 64, 128):
         sh = mu.h_solve_lanes_shape(b, 513, 200, 1)
-        print(f"kernel K1 launch B={b} F=513 R=200 N=1: {sh['clusters']} "
-              f"clusters of {sh['cluster']} blocks x {sh['threads']} threads, "
-              f"a group of {sh['group']} column, {sh['smem_bytes']} B shared "
-              f"memory a block, {sh['resident_clusters']} clusters resident "
-              f"at once")
+        print(f"kernel K1 launch B={b} F=513 R=200 N=1: {sh['path']} path, "
+              f"{sh['clusters']} clusters of {sh['cluster']} blocks x "
+              f"{sh['threads']} threads, a group of {sh['group']} column, "
+              f"{sh['smem_bytes']} B shared memory a block, "
+              f"{sh['resident_clusters']} clusters resident at once, "
+              f"{sh['waves']} waves")
+        if sh["path"] != "narrow":
+            raise AssertionError("K1 at one column a lane must take the "
+                                 "narrow path")
         head = bd[None, :, :50] * (0.5 + rng.random((b, 1, 50)))
         w = np.concatenate([np.broadcast_to(bx, (b,) + bx.shape), head,
                             np.broadcast_to(bd[:, 50:], (b, 513, 50))],
@@ -785,6 +799,8 @@ def check_h_kernel_one_column(mu, dev, card):
         h, trips = mu.mu_h_solve_lanes(*args)
         err = compare(f"K1 mu_h_solve_lanes B={b} N=1 cap=100 eps=0.001", h,
                       trips, mu.mu_h_solve_lanes_ref, args, cols)
+        compare(f"K1 mu_h_solve_lanes B={b} N=1 against the narrow twin", h,
+                trips, mu.mu_h_solve_lanes_narrow_twin, args, cols)
         h2, trips2 = mu.mu_h_solve_lanes(*args)
         same = torch.equal(h, h2) and torch.equal(trips, trips2)
         print(f"kernel K1 B={b} N=1: two launches bit-identical {same}; "
@@ -792,16 +808,28 @@ def check_h_kernel_one_column(mu, dev, card):
               f"{int(trips.max())}")
         if not same:
             raise AssertionError("two K1 launches on the same inputs differ")
+        if b >= 64:
+            alone = [0, 1, b // 2, b - 1]
+            for i in alone:
+                hi, ti = mu.mu_h_solve_lanes(v[i:i + 1], args[1][i:i + 1],
+                                             *args[2:])
+                if not (torch.equal(hi, h[i:i + 1])
+                        and torch.equal(ti, trips[i:i + 1])):
+                    raise AssertionError(f"K1 B={b} N=1: lane {i} alone "
+                                         f"differs from the lane in its "
+                                         f"batch")
+            print(f"kernel K1 B={b} N=1: lanes {alone} alone bit-identical "
+                  f"to the same lanes in the batch")
         k1, k2, p1, p2 = in_turns(lambda: mu.mu_h_solve_lanes(*args),
                                   lambda: mu.mu_h_solve_lanes_ref(*args))
         flops = 4.0 * 513 * 200 * float(trips.sum().item())
         bnd, by = bound(flops, 4.0 * (b * 513 + b * 513 * 200 + 200 + b * 200
                                       + b))
-        out[b] = (err, min(k1, k2), min(p1, p2), bnd, by)
+        out[b] = (err, min(k1, k2), min(p1, p2), bnd, by, sh["path"])
         print(f"kernel K1 time B={b} F=513 R=200 N=1 cap 100 eps 1e-3 (mean "
-              f"trips {trips.float().mean().item():.2f}): {k1:.3f}, {k2:.3f} "
-              f"ms, plain {p1:.3f}, {p2:.3f} ms (in turns plain, kernel, "
-              f"kernel, plain); bound {bnd:.4f} ms by {by}, share "
+              f"trips {trips.float().mean().item():.2f}): {k1:.4f}, "
+              f"{k2:.4f} ms, plain {p1:.3f}, {p2:.3f} ms (in turns plain, "
+              f"kernel, kernel, plain); bound {bnd:.4f} ms by {by}, share "
               f"{bnd / out[b][1]:.1%}; GFLOP/s {flops / out[b][1] / 1e6:.1f} "
               f"({card})")
     return out
@@ -895,7 +923,7 @@ def check_exact_plan(mu, dev, card):
               f"{b * audio_s / best:.1f} audio-s/s, {best / n_frames * 1e3:.3f} "
               f"ms a frame, launches a batch {per_batch} ({card})")
         wall, k1, k2, other, n_k, busy = profile_batch(
-            enh, batch, ("h_lanes_kernel",), ("w_lanes_kernel",))
+            enh, batch, K1_KERNELS, ("w_lanes_kernel",))
         print(f"exact plan profile B={b}: wall {wall:.4f} s, K1 {k1:.2f} ms, "
               f"K2 {k2:.2f} ms, other device {other:.2f} ms, kernels launched "
               f"{n_k}, device busy {busy:.1%} ({card})")
@@ -983,6 +1011,7 @@ FLEET_BLOCK = 8             # frames a fleet tick: 80 ms of audio
 FLEET_ROUNDS = 3            # timed passes over the wires at each fleet size
 FLEET_SIZES = (16, 64, 128)  # lanes; the sharded fleet splits the last in two
 FLEET_BA_BLOCK = 88         # frames a tick of the block-adaptive fleet
+FLEET_PROFILE_LANES = 256   # the fleet whose tick's device half is profiled
 
 
 def push_blocks(fleet, xs, block):
@@ -1221,12 +1250,25 @@ def check_fleet(mu, enh, card):
             fleet.push(xs[:b, i * step: (i + 1) * step])
 
     wall, k1, k2, other, n_k, busy = profile_call(
-        ticks, ("h_lanes_kernel",), ("w_lanes_kernel",))
+        ticks, K1_KERNELS, ("w_lanes_kernel",))
     print(f"fleet profile B={b} wire=samples, {n_ticks} ticks of {block} "
           f"frames: wall {wall * 1e3 / n_ticks:.3f} ms a tick, K1 "
           f"{k1 / n_ticks:.3f} ms, K2 {k2 / n_ticks:.3f} ms, other device "
           f"{other / n_ticks:.3f} ms a tick, kernels launched "
           f"{n_k / n_ticks:.0f} a tick, device busy {busy:.1%} ({card})")
+    # one tick's device half at 256 lanes (the fleet's size above which it
+    # is device-bound), by kernel
+    from se_snmf_nat_tpu_torch.runtime.profiling import _fleet_tick_window
+    b = FLEET_PROFILE_LANES
+    ticks, make_hops, carry = _fleet_tick_window(
+        enh, b, block, 1, np.random.default_rng(0))
+    hops = make_hops()
+    wall, k1, k2, other, n_k, busy = profile_call(
+        lambda: ticks(hops, *carry), K1_KERNELS, ("w_lanes_kernel",))
+    print(f"fleet profile B={b} one tick's device half ({block} frames, no "
+          f"PCM copy): wall {wall * 1e3:.3f} ms, K1 {k1:.3f} ms, K2 "
+          f"{k2:.3f} ms, other device {other:.3f} ms, kernels launched "
+          f"{n_k}, device busy {busy:.1%} ({card})")
     return first
 
 
@@ -2966,7 +3008,10 @@ def check_cli(mu, dev, card):
         text, _, _ = cli_call(mu, ["eval", "--got", out, "--want", out],
                               total)
         ev = last_json(text)
-        if ev["max_abs_err"] != 0.0 or ev["corr"] != 1.0:
+        # np.corrcoef of a signal with itself is 1 to float64 rounding, not
+        # always exactly 1 (0.9999999999999998 on some signals)
+        if ev["max_abs_err"] != 0.0 \
+                or abs(ev["corr"] - 1.0) > 4 * np.finfo(np.float64).eps:
             raise AssertionError(f"cli eval of a file against itself: {ev}")
         print(f"cli eval: a grid output against itself, max_abs_err "
               f"{ev['max_abs_err']}, corr {ev['corr']}")
@@ -3394,6 +3439,7 @@ def check_bench(mu, dev, card, phase4_b64):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU path here",
               file=sys.stderr)
@@ -3423,7 +3469,7 @@ def main() -> int:
     # from a generator of its own, so one check's draws never move another's
     h_errs, h_times = check_h_kernel(mu, dev, np.random.default_rng(0), card,
                                      lib.log)
-    h_one = check_h_kernel_one_column(mu, dev, card)
+    h_one = check_h_kernel_one_column(mu, dev, card, lib.log)
     w_errs, w_times, w_cap100 = check_w_kernel(
         mu, dev, np.random.default_rng(0), card, lib.log)
     c_errs, c_times = check_cols_kernel(mu, dev, card, lib.log)
@@ -3495,7 +3541,7 @@ def main() -> int:
               f"s): best {best:.4f} s of {[round(x, 4) for x in times]}, "
               f"{b * audio_s / best:.1f} audio-s/s ({card})")
     wall, k1, k2, other, n_k, busy = profile_batch(
-        enh, batch, ("h_lanes_kernel",), ("w_lanes_kernel",))
+        enh, batch, K1_KERNELS, ("w_lanes_kernel",))
     print(f"main path profile B={b}: wall {wall:.4f} s, K1 {k1:.2f} ms, K2 "
           f"{k2:.2f} ms, other device {other:.2f} ms, kernels launched "
           f"{n_k}, device busy {busy:.1%} ({card})")
@@ -3558,8 +3604,10 @@ def main() -> int:
 
     def sub(found):
         return dict(zip(("max_abs_err", "ms", "plain_ms", "bound_ms",
-                         "bound_by"), found))
+                         "bound_by", "path"), found))
 
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
+          f"included")
     print(json.dumps({"kernels": [
         entry("K1", "mu_h_solve_lanes",
               "se_snmf_nat_tpu_torch/csrc/mu_h_solve.cu", H_REPLACES,

@@ -71,6 +71,10 @@
 // No fast math: the relative-cost test relies on IEEE inf/NaN at trip 0
 // (|cost - inf| / inf is NaN, and NaN < eps is false) and on an accurate
 // logf.
+//
+// That design is the wide path, for N > N* columns a lane (the block plan's
+// K=88).  A launch of N <= N* columns takes the narrow path below (h_narrow_
+// kernel, see its note); mu_h_solve_lanes chooses from (F, R, N) alone.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -80,9 +84,12 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// MU_H_THREADS and MU_H_CLUSTER can be set on the compiler's command line
-// only so that tools/kernel_variants.py can time another build beside this
-// one; a column's bits depend on the cluster size.
+// MU_H_THREADS, MU_H_CLUSTER (the wide path), MU_H_NARROW_MAX (N*, the
+// most columns a lane that take the narrow path; 0 turns it off) and
+// MU_H_NARROW_CLUSTER (the narrow path's cluster size) can be set on the
+// compiler's command line only so that tools/kernel_variants.py can time
+// another build beside this one; a column's bits depend on the path and on
+// its cluster size.
 #ifndef MU_H_THREADS
 #define MU_H_THREADS 384
 #endif
@@ -551,40 +558,661 @@ int plan(int B, int F, int R, int N, Plan& p) {
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// The narrow path: N <= N* columns a lane.
+//
+// Replaces the same TPU kernel at the shape it was written for:
+// mu_pallas.py:_h_solve_kernel at M=1, one (F, 1) problem a grid step, the
+// per-frame activation inference of se_snmf_nat_tpu/enhance/engine.py (the
+// exact plan, a StreamingSession, a fleet tick, the time shard: F=513,
+// R=200, N=1, cap 100, eps 1e-3, B=1-256 lanes).
+//
+// What bounds it at N=1.  A trip is 2*F*R = 0.2 MFMA a lane, nothing to
+// reuse between columns: each W entry is used once by L = W h and once by
+// the numerator W'u.  So a lane costs W's 410 KB read once from device
+// memory (7.8 us for 64 lanes at 3.35 TB/s), then, per trip, a sweep of W
+// from shared memory and the barriers that order the trip, for ~12 trips
+// (8-14 on the exact plan's spectra).  The wide path's 4x4 and 12x4 tiles
+// gave 17 of a block's 384 threads work at N=1, each walking R or a slice's
+// rows as one serial chain, and one block a SM held 15 lanes at once.
+//
+// Design, and what each choice does about that:
+// * A cluster of C=8 blocks a lane, F in 8 slices (65 rows at F=513); block
+//   k keeps its slice of W normalised in shared memory for the whole solve,
+//   W's column norms and sums reduced once through distributed shared memory
+//   (the column sums taken raw and divided by the norm: one cluster barrier).
+// * 128 threads (4 warps) and 57,184 B of shared memory a block at F=513,
+//   R=200, N=1, so that 4 blocks share an SM (launch bounds (128, 4): up to
+//   128 registers a thread, 127 used).  The card then holds 62 lanes at once
+//   (the occupancy query on the H100; clusters of 4 at 2 blocks a SM also
+//   62, clusters of 2 at one block a SM 66): B=64 runs as 62 lanes and 2
+//   that start as the first lanes stop.  Measured with tools/kernel_variants
+//   .py h1: clusters of 2 (one wave at B=64) were slower at every B with the
+//   1e-3 stop, their lane's trip 1.4x longer on 2 SMs than on 8.
+// * One sweep of W a trip, both products from registers: a warp takes its
+//   slice's rows in groups of G (8 at N=1); each lane loads its two float4
+//   of each row (r = 4l.. and 4(l+32).., R <= 256), forms the G*N partial
+//   dots with h (held in registers for the trip), and the warp reduces them
+//   by halving exchanges (warp_sums: 9 shuffles for 8 rows at N=1); the
+//   lane left with row g's L computes u = V/max(L, flr) and the KL term,
+//   the G values of u are broadcast back (8 shuffles), and each lane adds
+//   W_row * u into its numerator accumulators from the W it still holds.
+//   Every thread works on every row; no thread walks a serial chain longer
+//   than its group.
+// * Sums in an order fixed by the code, never by B or the wave: a lane's
+//   rows go to warps by group index, the warps' numerators and costs are
+//   added in a fixed tree in shared memory ((w0 + w2) + (w1 + w3) at 4
+//   warps), the C slices' sums in rank order.  Every block reads all C
+//   partial numerators and updates the whole of its own copy of h (the same
+//   bits in every block), so a trip needs one cluster barrier, with the
+//   partials double-buffered, and the stop test is taken redundantly by the
+//   threads that update h, its remote reads overlapped with theirs.
+// * One stop per column (per lane at N=1), the last trip's L skipped, no
+//   fast math, as on the wide path.  The launch is one cluster a lane,
+//   whatever B: a lane's bits depend only on its inputs and on (F, R, N).
+//
+// Shared memory per block (floats; WS = R padded to 4, NC = N padded to 1,
+// 2 or 4, FP = ceil(F/C), W = the warps): W slice FP*WS | V slice, floored,
+// FP*NC padded to 4 | h NC*WS | partial
+// numerators, two buffers 2*NC*WS | the warps' other partials (the norms
+// during the set-up) (W/2 - 1)*NC*WS | the slice's sums of squares and
+// column sums 2*WS | the warps' costs, the slice's cost (two buffers), the
+// penalty.  MU_H_NARROW_CLUSTER (2, 4 or 8; 1,024/C threads a block) is a
+// knob for tools/kernel_variants.py only.
+// ---------------------------------------------------------------------------
+
+#ifndef MU_H_NARROW_MAX
+#define MU_H_NARROW_MAX 4
+#endif
+
+namespace narrow {
+
+#ifndef MU_H_NARROW_CLUSTER
+#define MU_H_NARROW_CLUSTER 8
+#endif
+constexpr int C = MU_H_NARROW_CLUSTER;   // blocks of a cluster: F in C slices
+// C/2 blocks a SM at N=1, 1,024 threads a SM: up to 128 registers a thread
+constexpr int THREADS = 1024 / C;
+constexpr int NW = THREADS / 32;
+constexpr int MIN_BLOCKS = C / 2;
+constexpr int KJ = 2;           // float4 of a row a lane
+constexpr int MAX_R = 32 * 4 * KJ;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(C == 2 || C == 4 || C == 8, "a cluster of 2, 4 or 8 blocks");
+
+struct Layout {
+  int ws, fp, nc4;
+  int w, v, h, n, e, ss, cs, cw, c, pen;
+  int floats;
+};
+
+__host__ __device__ inline Layout layout(int F, int R, int nc) {
+  Layout l;
+  l.ws = round4(R);
+  l.fp = (F + C - 1) / C;
+  l.nc4 = round4(nc);
+  int o = 0;
+  l.w = o;    o += l.fp * l.ws;
+  l.v = o;    o += round4(l.fp * nc);
+  l.h = o;    o += nc * l.ws;
+  l.n = o;    o += 2 * nc * l.ws;
+  l.e = o;    o += (NW / 2 - 1) * nc * l.ws;
+  l.ss = o;   o += l.ws;
+  l.cs = o;   o += l.ws;
+  l.cw = o;   o += NW * l.nc4;
+  l.c = o;    o += 2 * l.nc4;
+  l.pen = o;  o += l.nc4;
+  l.floats = o;
+  return l;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+__device__ __forceinline__ void add4(float4& a, float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// acc += w * u
+__device__ __forceinline__ void fma4(float4& acc, float4 w, float u) {
+  acc.x += w.x * u;
+  acc.y += w.y * u;
+  acc.z += w.z * u;
+  acc.w += w.w * u;
+}
+
+template <int P>
+__host__ __device__ constexpr int log2p() {
+  return P >= 8 ? 3 : P >= 4 ? 2 : P >= 2 ? 1 : 0;
+}
+
+// The warp's sums of p[0..P): lane l returns the sum over the 32 lanes of
+// p[l >> (5 - log2 P)].  Halving exchanges at offsets 16, 8, ... while more
+// than one value is left, then a butterfly over the remaining offsets; every
+// lane that returns value k holds the same bits (each exchange adds the two
+// halves in either order, and float addition commutes).
+template <int P>
+__device__ __forceinline__ float warp_sums(float (&p)[P], int lane) {
+  int off = 16;
+#pragma unroll
+  for (int s = P; s > 1; s >>= 1, off >>= 1) {
+    const bool up = (lane & off) != 0;
+#pragma unroll
+    for (int k = 0; k < s / 2; ++k) {
+      const float send = up ? p[k] : p[k + s / 2];
+      const float keep = up ? p[k + s / 2] : p[k];
+      p[k] = keep + __shfl_xor_sync(FULL, send, off);
+    }
+  }
+  float x = p[0];
+#pragma unroll
+  for (; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
+  return x;
+}
+
+struct Ctx {
+  const float* sW;
+  const float* sV;   // the slice's V, floored, (FP, NC)
+  int N, nf, ws, r4;
+  float flr;
+};
+
+// G rows from f0 of the slice (those past nf count as zero): L, u and the
+// KL terms into `cost` (the lane's own row and column), and W' u into acc.
+template <int NC, int G>
+__device__ __forceinline__ void rows(const Ctx& x, int f0, int lane,
+                                     const float4 (&h)[KJ][NC],
+                                     float4 (&acc)[KJ][NC], float& cost,
+                                     bool with_cost) {
+  constexpr int P = G * NC;
+  constexpr int SH = 5 - log2p<P>();
+  const int idx = lane >> SH;
+  const int fi = f0 + idx / NC, ci = idx % NC;
+  const bool mine = fi < x.nf && ci < x.N;
+  const float vv = mine ? x.sV[fi * NC + ci] : 0.f;
+  float4 w[G][KJ];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int q = lane + 32 * j;
+      w[g][j] = f0 + g < x.nf && q < x.r4
+                    ? ld4(x.sW + (f0 + g) * x.ws + 4 * q)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  float p[P];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float d = 0.f;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) d += dot4(w[g][j], h[j][c]);
+      p[g * NC + c] = d;
+    }
+  const float lam = fmaxf(warp_sums<P>(p, lane), x.flr);
+  float u = 0.f;
+  if (mine) {
+    u = vv / lam;
+    if (with_cost) cost += vv * logf(u) - vv + lam;
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float ug = __shfl_sync(FULL, u, (g * NC + c) << SH);
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) fma4(acc[j][c], w[g][j], ug);
+    }
+}
+
+struct Smem {
+  float* sH;
+  float* sN;     // this pass's partial numerators (read by the cluster)
+  float* sE;     // the warps' other partials
+  float* sCw;    // the warps' costs
+  float* sC;     // this pass's cost (read by the cluster)
+  float* sPen;
+};
+
+// One pass over the block's rows with the current h: each warp's numerator
+// and (with_cost) KL terms, then the block's partial numerator
+// (w0 + w2) + (w1 + w3) into s.sN, its partial cost likewise into s.sC and
+// sparsity * sum(h) into s.sPen.
+template <int NC>
+__device__ void pass(const Ctx& x, const Smem& s, float sparsity,
+                     bool with_cost) {
+  constexpr int G = 8 / NC;
+  constexpr int SHM = 5 - log2p<G * NC>(), SHT = 5 - log2p<NC>();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ws = x.ws, nc4 = round4(NC);
+  float4 h[KJ][NC], acc[KJ][NC];
+#pragma unroll
+  for (int j = 0; j < KJ; ++j)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int q = lane + 32 * j;
+      h[j][c] = q < x.r4 ? ld4(s.sH + c * ws + 4 * q)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+      acc[j][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  float cost_main = 0.f, cost_tail = 0.f;
+  // groups of G rows to warps by group index; the rows past the last full
+  // group one at a time, continuing the round
+  const int ng = x.nf / G, tail = ng * G;
+  for (int i = warp; i < ng; i += NW)
+    rows<NC, G>(x, i * G, lane, h, acc, cost_main, with_cost);
+  for (int k = ((warp - ng) % NW + NW) % NW; tail + k < x.nf; k += NW)
+    rows<NC, 1>(x, tail + k, lane, h, acc, cost_tail, with_cost);
+  if (with_cost) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float cs = 0.f;
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        cs += __shfl_sync(FULL, cost_main, (g * NC + c) << SHM);
+      cs += __shfl_sync(FULL, cost_tail, c << SHT);
+      if (lane == 0) s.sCw[warp * nc4 + c] = cs;
+    }
+    if (warp == 0) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        float hs = 0.f;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j)
+          hs += (h[j][c].x + h[j][c].y) + (h[j][c].z + h[j][c].w);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          hs += __shfl_xor_sync(FULL, hs, off);
+        if (lane == 0) s.sPen[c] = sparsity * hs;
+      }
+    }
+  }
+  // the warps' numerators added in a fixed tree: buffer i (sN, then the
+  // NW/2 - 1 of sE) takes w_i + w_(i + NW/2), then buffer i adds buffer
+  // i + k for k = NW/4, ..., 1
+  const int part = NC * ws;
+  float* dst = warp % (NW / 2) == 0 ? s.sN
+                                    : s.sE + (warp % (NW / 2) - 1) * part;
+  if (warp < NW / 2) {
+#pragma unroll
+    for (int j = 0; j < KJ; ++j)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int q = lane + 32 * j;
+        if (q < x.r4) st4(dst + c * ws + 4 * q, acc[j][c]);
+      }
+  }
+  __syncthreads();
+  if (warp >= NW / 2) {
+#pragma unroll
+    for (int j = 0; j < KJ; ++j)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int q = lane + 32 * j;
+        if (q < x.r4) {
+          float4 a = ld4(dst + c * ws + 4 * q);
+          add4(a, acc[j][c]);
+          st4(dst + c * ws + 4 * q, a);
+        }
+      }
+  }
+#pragma unroll
+  for (int k = NW / 4; k >= 1; k >>= 1) {
+    __syncthreads();
+    for (int e = tid; e < k * NC * x.r4; e += THREADS) {
+      const int i = e / (NC * x.r4), rest = e - i * NC * x.r4;
+      const int c = rest / x.r4, q = rest - c * x.r4;
+      float* a = (i == 0 ? s.sN : s.sE + (i - 1) * part) + c * ws + 4 * q;
+      float4 sum = ld4(a);
+      add4(sum, ld4(s.sE + (i + k - 1) * part + c * ws + 4 * q));
+      st4(a, sum);
+    }
+  }
+  if (with_cost && tid < NC) {   // the warps' costs in the same tree
+    float cw[NW];
+#pragma unroll
+    for (int i = 0; i < NW; ++i) cw[i] = s.sCw[i * nc4 + tid];
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) cw[i] = cw[i] + cw[i + NW / 2];
+#pragma unroll
+    for (int k = NW / 4; k >= 1; k >>= 1)
+#pragma unroll
+      for (int i = 0; i < k; ++i) cw[i] = cw[i] + cw[i + k];
+    s.sC[tid] = cw[0];
+  }
+}
+
+// One cluster a lane (grid (C, B)).  The threads below NC * ceil(R/4) each
+// own one float4 of h (column c, rows 4q..4q+3) for the whole solve, in
+// registers with its 1'W + sparsity, the column's last cost and stop flag,
+// SLOTS of them a thread.
+template <int NC>
+__global__ void __launch_bounds__(THREADS, NC == 1 ? MIN_BLOCKS
+                                              : MIN_BLOCKS > 1 ? MIN_BLOCKS - 1
+                                                               : 1)
+h_narrow_kernel(const float* __restrict__ v, const float* __restrict__ w,
+                const float* __restrict__ h0, long long h0_lane_stride,
+                float* __restrict__ h_out, int* __restrict__ trips_out,
+                int F, int R, int N, int max_iter, float conv_eps,
+                float sparsity, float flr, int vec) {
+  constexpr int SLOTS = (NC * 32 * KJ + THREADS - 1) / THREADS;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const Layout l = layout(F, R, NC);
+  const int b = blockIdx.y;
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const bool early = conv_eps > 0.f;
+  const int ws = l.ws, nc4 = l.nc4;
+  float* sW = smem + l.w;
+  float* sSS = smem + l.ss;
+  float* sCS = smem + l.cs;
+  Smem s;
+  s.sH = smem + l.h;
+  s.sE = smem + l.e;
+  s.sCw = smem + l.cw;
+  s.sPen = smem + l.pen;
+  float* sV = smem + l.v;
+  Ctx x;
+  x.sW = sW;
+  x.sV = sV;
+  x.N = N;
+  const int fbase = F / C, frem = F % C;
+  const int flo = rank * fbase + min(rank, frem);
+  x.nf = fbase + (rank < frem ? 1 : 0);
+  x.ws = ws;
+  x.r4 = (R + 3) / 4;
+  x.flr = flr;
+
+  // W's rows of the slice (padding columns zero), V's floored; the slice's
+  // sums of squares and column sums
+  const float* wl = w + ((size_t)b * F + flo) * R;
+  const float* vl = v + ((size_t)b * F + flo) * N;
+  for (int e = tid; e < x.nf * NC; e += THREADS) {
+    const int f = e / NC, c = e - f * NC;
+    sV[e] = c < N ? fmaxf(vl[(size_t)f * N + c], flr) : 0.f;
+  }
+  if (vec) {   // R % 4 == 0 and W 16-byte aligned: nf * R floats in a row
+    const float4* src = reinterpret_cast<const float4*>(wl);
+    for (int e = tid; e < x.nf * R / 4; e += THREADS)
+      st4(sW + 4 * e, __ldg(src + e));
+  } else {
+    for (int e = tid; e < x.nf * ws; e += THREADS) {
+      const int f = e / ws, r = e - f * ws;
+      sW[e] = r < R ? wl[(size_t)f * R + r] : 0.f;
+    }
+  }
+  __syncthreads();
+  for (int r = tid; r < ws; r += THREADS) {
+    float ss = 0.f, cs = 0.f;
+    for (int f = 0; f < x.nf; ++f) {
+      const float a = sW[f * ws + r];
+      ss += a * a;
+      cs += a;
+    }
+    sSS[r] = ss;
+    sCS[r] = cs;
+  }
+  cluster.sync();
+  float* sNorm = s.sE;   // free until the first pass
+  for (int r = tid; r < ws; r += THREADS) {
+    float ss = 0.f;
+    for (int q = 0; q < C; ++q) ss += cluster.map_shared_rank(sSS, q)[r];
+    sNorm[r] = sqrtf(ss);
+  }
+  __syncthreads();
+  for (int e = tid; e < x.nf * ws; e += THREADS) {
+    const float nrm = sNorm[e % ws];
+    sW[e] = sW[e] / (nrm > 0.f ? nrm : 1.f);
+  }
+  float4 hs[SLOTS], ds[SLOTS];
+  float last[SLOTS];
+  int act[SLOTS], trips[SLOTS];
+  const float* h0l = h0 + (size_t)b * h0_lane_stride;
+#pragma unroll
+  for (int k = 0; k < SLOTS; ++k) {
+    const int e = tid + k * THREADS;
+    act[k] = 0;
+    trips[k] = 0;
+    last[k] = INFINITY;
+    if (e < NC * x.r4) {
+      const int c = e / x.r4, q = e - c * x.r4;
+      float hv[4], dv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 4 * q + i;
+        float cs = 0.f;
+        for (int p = 0; p < C; ++p) cs += cluster.map_shared_rank(sCS, p)[r];
+        const float nrm = sNorm[r];
+        dv[i] = r < R ? fmaxf(cs / (nrm > 0.f ? nrm : 1.f) + sparsity, flr)
+                      : 1.f;
+        hv[i] = r < R && c < N ? h0l[(size_t)r * N + c] * nrm : 0.f;
+      }
+      hs[k] = make_float4(hv[0], hv[1], hv[2], hv[3]);
+      ds[k] = make_float4(dv[0], dv[1], dv[2], dv[3]);
+      act[k] = c < N ? 1 : 0;
+      st4(s.sH + c * ws + 4 * q, hs[k]);
+    }
+  }
+  __syncthreads();
+
+  s.sN = smem + l.n;
+  s.sC = smem + l.c;
+  pass<NC>(x, s, sparsity, false);
+  for (int it = 0; it < max_iter; ++it) {
+    cluster.sync();   // the pass's partials, in every block
+    const int cb = it & 1;
+    const float* rN = smem + l.n + cb * NC * ws;
+    const float* rC = smem + l.c + cb * nc4;
+    int any = 0;
+#pragma unroll
+    for (int k = 0; k < SLOTS; ++k) {
+      const int e = tid + k * THREADS;
+      if (e >= NC * x.r4) continue;
+      const int c = e / x.r4, q = e - c * x.r4;
+      // the numerators and costs are read from the C blocks at once, before
+      // the stop test
+      float4 part[C];
+      float cpart[C];
+#pragma unroll
+      for (int p = 0; p < C; ++p) {
+        part[p] = ld4(cluster.map_shared_rank(rN, p) + c * ws + 4 * q);
+        cpart[p] = early ? cluster.map_shared_rank(rC, p)[c] : 0.f;
+      }
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int p = 0; p < C; ++p) add4(sum, part[p]);
+      if (early && it > 0) {   // the cost of the h the last pass used
+        float cost = 0.f;
+#pragma unroll
+        for (int p = 0; p < C; ++p) cost += cpart[p];
+        cost += s.sPen[c];
+        const float rel = fabsf(cost - last[k]) / fabsf(last[k]);
+        if (it > 1 && rel < conv_eps) act[k] = 0;
+        last[k] = cost;
+      }
+      if (act[k]) {
+        hs[k].x = hs[k].x * sum.x / ds[k].x;
+        hs[k].y = hs[k].y * sum.y / ds[k].y;
+        hs[k].z = hs[k].z * sum.z / ds[k].z;
+        hs[k].w = hs[k].w * sum.w / ds[k].w;
+        st4(s.sH + c * ws + 4 * q, hs[k]);
+      }
+      trips[k] += act[k];
+      any |= act[k];
+    }
+    if (!__syncthreads_or(any)) break;
+    if (it == max_iter - 1) break;   // the last trip's L is never read
+    s.sN = smem + l.n + (cb ^ 1) * NC * ws;
+    s.sC = smem + l.c + (cb ^ 1) * nc4;
+    pass<NC>(x, s, sparsity, early);
+  }
+  cluster.sync();   // no block leaves while a peer may still read it
+
+  if (rank != 0) return;
+  float* hl = h_out + (size_t)b * R * N;
+#pragma unroll
+  for (int k = 0; k < SLOTS; ++k) {
+    const int e = tid + k * THREADS;
+    if (e >= NC * x.r4) continue;
+    const int c = e / x.r4, q = e - c * x.r4;
+    if (c >= N) continue;
+    const float hv[4] = {hs[k].x, hs[k].y, hs[k].z, hs[k].w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * q + i < R) hl[(size_t)(4 * q + i) * N + c] = hv[i];
+    if (q == 0) trips_out[(size_t)b * N + c] = trips[k];
+  }
+}
+
+using Kernel = void (*)(const float*, const float*, const float*, long long,
+                        float*, int*, int, int, int, int, float, float, float,
+                        int);
+
+// The columns padded to a kernel's NC, and that kernel; null past N*.
+Kernel kernel_for(int N, int& nc) {
+  nc = N <= 1 ? 1 : N <= 2 ? 2 : 4;
+  if (N > MU_H_NARROW_MAX) return nullptr;
+  switch (nc) {
+#if MU_H_NARROW_MAX >= 1
+    case 1: return h_narrow_kernel<1>;
+#endif
+#if MU_H_NARROW_MAX >= 2
+    case 2: return h_narrow_kernel<2>;
+#endif
+#if MU_H_NARROW_MAX >= 3
+    case 4: return h_narrow_kernel<4>;
+#endif
+    default: return nullptr;
+  }
+}
+
+struct Plan {
+  Kernel kernel;
+  int nc, bytes;
+  int resident;   // clusters the card holds at once
+};
+
+// The launch: one cluster of C blocks a lane.
+struct Launch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  Launch(const Plan& p, int B, cudaStream_t s) {
+    cfg = {};
+    cfg.gridDim = dim3(C, B, 1);
+    cfg.blockDim = dim3(THREADS, 1, 1);
+    cfg.dynamicSmemBytes = p.bytes;
+    cfg.stream = s;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// Whether (F, R, N) takes the narrow path: N <= N*, R <= 256 and the
+// slice's layout fits a block; p.kernel is null for the wide path.  Returns
+// 0 or a CUDA error.
+int plan(int F, int R, int N, Plan& p) {
+  p.kernel = kernel_for(N, p.nc);
+  const size_t bytes = sizeof(float) * (size_t)layout(F, R, p.nc).floats;
+  if (R > MAX_R || bytes > MAX_SMEM) p.kernel = nullptr;
+  if (p.kernel == nullptr) return 0;
+  p.bytes = (int)bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(p.kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  static int asked_dev = -1, asked_bytes = 0, asked_nc = 0, resident = 0;
+  if (asked_dev != dev || asked_bytes != p.bytes || asked_nc != p.nc) {
+    Launch l(p, 1, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&resident, p.kernel, &l.cfg);
+    if (err != cudaSuccess) return (int)err;
+    asked_dev = dev;
+    asked_bytes = p.bytes;
+    asked_nc = p.nc;
+  }
+  p.resident = resident;
+  return 0;
+}
+
+}  // namespace narrow
+
 }  // namespace
 
 // The launch of mu_h_solve_lanes for B lanes of (F, R, N): out = {cluster
 // size, group, groups a lane, shared-memory bytes per block, threads per
 // block, clusters the card holds at once, lanes in groups of `group`, the
-// last wave's group, clusters launched}.  Returns as plan().
+// last wave's group, clusters launched, the path (0 wide, 1 narrow), waves
+// of resident clusters}.  On the narrow path the group is N padded to the
+// kernel's 1, 2 or 4 columns, one cluster a lane.  Returns as plan().
 extern "C" int mu_h_solve_lanes_shape(int B, int F, int R, int N, int* out) {
-  Plan p;
-  const int rc = plan(B, F, R, N, p);
+  narrow::Plan q;
+  int rc = narrow::plan(F, R, N, q);
   if (rc != 0) return rc;
-  const int vals[9] = {C, p.g, (N + p.g - 1) / p.g, p.bytes, THREADS,
-                       p.resident, p.lanes_full, p.g2, p.units};
-  for (int i = 0; i < 9; ++i) out[i] = vals[i];
+  if (q.kernel != nullptr) {
+    const int res = q.resident > 0 ? q.resident : 1;
+    const int vals[11] = {narrow::C, q.nc, 1, q.bytes, narrow::THREADS,
+                          q.resident, B, q.nc, B, 1, (B + res - 1) / res};
+    for (int i = 0; i < 11; ++i) out[i] = vals[i];
+    return 0;
+  }
+  Plan p;
+  rc = plan(B, F, R, N, p);
+  if (rc != 0) return rc;
+  const int res = p.resident > 0 ? p.resident : 1;
+  const int vals[11] = {C, p.g, (N + p.g - 1) / p.g, p.bytes, THREADS,
+                        p.resident, p.lanes_full, p.g2, p.units, 0,
+                        (p.units + res - 1) / res};
+  for (int i = 0; i < 11; ++i) out[i] = vals[i];
   return 0;
 }
 
 // C entry.  v (B,F,N), w (B,F,R), h0 (B,R,N) with lane stride h0_lane_stride
 // (0 broadcasts one (R,N) start to every lane); outputs h (B,R,N) and the
-// per-column trip counts (B,N).  Launches on `stream`, does not
-// synchronise; returns the launch's error (a refused cluster launch
-// included), or plan()'s -1.
+// per-column trip counts (B,N).  N <= N* takes the narrow path, the rest
+// the wide one.  Launches on `stream`, does not synchronise; returns the
+// launch's error (a refused cluster launch included), or plan()'s -1.
 extern "C" int mu_h_solve_lanes(const float* v, const float* w,
                                 const float* h0, long long h0_lane_stride,
                                 float* h, int* trips, int B, int F, int R,
                                 int N, int max_iter, float conv_eps,
                                 float sparsity, float flr, void* stream) {
   if (B == 0 || N == 0) return 0;
-  Plan p;
-  const int rc = plan(B, F, R, N, p);
+  narrow::Plan q;
+  int rc = narrow::plan(F, R, N, q);
   if (rc != 0) return rc;
-  Launch l(p, static_cast<cudaStream_t>(stream));
-  cudaError_t err = cudaLaunchKernelEx(
-      &l.cfg, h_lanes_kernel, v, w, h0, h0_lane_stride, h, trips, F, R, N,
-      p.g, p.lanes_full, p.g2, max_iter, conv_eps, sparsity, flr);
+  cudaError_t err;
+  if (q.kernel != nullptr) {
+    const int vec = R % 4 == 0 &&
+                    reinterpret_cast<unsigned long long>(w) % 16 == 0;
+    narrow::Launch l(q, B, static_cast<cudaStream_t>(stream));
+    err = cudaLaunchKernelEx(&l.cfg, q.kernel, v, w, h0, h0_lane_stride, h,
+                             trips, F, R, N, max_iter, conv_eps, sparsity,
+                             flr, vec);
+  } else {
+    Plan p;
+    rc = plan(B, F, R, N, p);
+    if (rc != 0) return rc;
+    Launch l(p, static_cast<cudaStream_t>(stream));
+    err = cudaLaunchKernelEx(&l.cfg, h_lanes_kernel, v, w, h0,
+                             h0_lane_stride, h, trips, F, R, N, p.g,
+                             p.lanes_full, p.g2, max_iter, conv_eps,
+                             sparsity, flr);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

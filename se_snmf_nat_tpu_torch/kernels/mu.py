@@ -2,14 +2,19 @@
 
 * ``mu_h_solve_lanes`` (``csrc/mu_h_solve.cu``) replaces the TPU kernel
   ``se_snmf_nat_tpu/kernels/mu_pallas.py:_h_solve_kernel`` /
-  ``pallas_h_solve`` with the per-column stop of ``snmf_h_solve_columns``:
-  the block step's H-solve.  Bound on the H100: f32 FMA and shared-memory
-  throughput.  A lane's W (513 x 200 f32, 410 KB) exceeds a block's 227 KB
-  of shared memory, so a cluster of blocks takes one lane's group of up to
-  96 columns, F split over the blocks with each block's slice of W resident
-  for every trip, and the partial numerators summed through distributed
-  shared memory (see the source).  ``mu_h_solve_lanes_twin`` is the plain
-  version of that schedule, for the tests.
+  ``pallas_h_solve`` with the per-column stop of ``snmf_h_solve_columns``.
+  A lane's W (513 x 200 f32, 410 KB) exceeds a block's 227 KB of shared
+  memory, so a cluster of 8 blocks takes a lane, F split over the blocks
+  with each block's slice of W resident for every trip and the partial
+  numerators summed through distributed shared memory (see the source).
+  Two paths, chosen by the library from (F, R, N) alone: the wide one for
+  the block step's H-solve (groups of up to 96 columns, register-tiled FFMA
+  products; bound by f32 FMA and shared-memory throughput), and the narrow
+  one for N <= N* (``NARROW_MAX``) columns a lane, the exact plan's one
+  column a frame (a warp a row group, both products from one sweep of W in
+  registers, 4 blocks a SM; bound by that sweep and a trip's barriers).
+  ``mu_h_solve_lanes_twin`` and ``mu_h_solve_lanes_narrow_twin`` are the
+  plain versions of the two schedules, for the tests.
 * ``mu_w_solve_lanes`` (``csrc/mu_w_solve.cu``) replaces
   ``mu_pallas.py:_w_solve_kernel`` / ``pallas_w_solve`` and adds the
   per-lane ``active`` flag of ``snmf_solve``: the per-block refit.  Bound:
@@ -50,25 +55,59 @@ def mu_h_solve_lanes_ref(v, w, h0, max_iter: int, conv_eps: float,
     return res.h, res.iters
 
 
+def _twin_trips(h, num, partials, dph, max_iter: int, conv_eps: float):
+    """The H-solve kernels' trip loop over (B, R, K) columns, as the twins
+    run it: each trip's update from the numerator of the pass before, then
+    (but on the last trip) the pass over the new h, whose cost is tested
+    against the last; ``partials(h, cost)`` gives (numerator, cost).
+    Returns (h, trips (B, K))."""
+    b, _, k = h.shape
+    early = conv_eps > 0
+    active = torch.ones((b, k), dtype=torch.bool, device=h.device)
+    trips = torch.zeros(active.shape, dtype=torch.int32, device=h.device)
+    last = torch.full(active.shape, float("inf"), dtype=h.dtype,
+                      device=h.device)
+    for it in range(max_iter):
+        if early and not bool(active.any()):
+            break
+        h = torch.where(active[:, None, :], h * num / dph, h)
+        trips = trips + active.to(torch.int32)
+        if it == max_iter - 1:
+            break
+        num, cost = partials(h, early)
+        if early:
+            rel = torch.abs(cost - last) / torch.abs(last)
+            if it > 0:
+                active = active & ~(rel < conv_eps)
+            last = cost
+    return h, trips
+
+
+def _row_slices(f: int, cluster: int) -> list[slice]:
+    """F split into ``cluster`` row slices as the kernels split it (the
+    first F % cluster slices one row longer)."""
+    base, rem = divmod(f, cluster)
+    cuts = [k * base + min(k, rem) for k in range(cluster + 1)]
+    return [slice(cuts[k], cuts[k + 1]) for k in range(cluster)]
+
+
 def mu_h_solve_lanes_twin(v, w, h0, max_iter: int, conv_eps: float,
                           sparsity: float, flr: float, cluster: int,
                           group: int):
-    """Plain version of ``csrc/mu_h_solve.cu``'s schedule, for the tests
-    (nothing on the main path uses it): the columns in groups of ``group``,
-    F split into ``cluster`` row slices as the kernel splits it (the first
-    F % cluster slices one row longer), and every cross-slice sum taken in
-    slice order from zero: W's sums of squares and column sums, the partial
-    numerators W_k'U_k, and each column's cost as the sum over k of slice
-    k's KL terms plus the penalty of the k-th ceil(R/cluster) rows of H.
-    Each trip's L is computed after the stop test of the trip before,
-    together with the next numerator, and the last trip's is skipped, as in
-    the kernel.  Same arguments and results as ``mu_h_solve_lanes``."""
+    """Plain version of ``csrc/mu_h_solve.cu``'s wide schedule, for the
+    tests (nothing on the main path uses it): the columns in groups of
+    ``group``, F split into ``cluster`` row slices as the kernel splits it,
+    and every cross-slice sum taken in slice order from zero: W's sums of
+    squares and column sums, the partial numerators W_k'U_k, and each
+    column's cost as the sum over k of slice k's KL terms plus the penalty
+    of the k-th ceil(R/cluster) rows of H.  Each trip's L is computed after
+    the stop test of the trip before, together with the next numerator, and
+    the last trip's is skipped, as in the kernel.  Same arguments and
+    results as ``mu_h_solve_lanes``."""
     b, f, n = v.shape
     r = w.shape[-1]
     h0 = h0.expand(b, r, n)
-    base, rem = divmod(f, cluster)
-    cuts = [k * base + min(k, rem) for k in range(cluster + 1)]
-    rows = [slice(cuts[k], cuts[k + 1]) for k in range(cluster)]
+    rows = _row_slices(f, cluster)
     rc = -(-r // cluster)
     owned = [slice(min(r, k * rc), min(r, (k + 1) * rc))
              for k in range(cluster)]
@@ -82,7 +121,6 @@ def mu_h_solve_lanes_twin(v, w, h0, max_iter: int, conv_eps: float,
     for s in rows:
         cs = cs + torch.sum(w[:, s], dim=1)
     dph = torch.clamp(cs + sparsity, min=flr)[:, :, None]
-    early = conv_eps > 0
     h_out, trips_out = [], []
     for g0 in range(0, n, group):
         vg = v[..., g0:g0 + group]
@@ -101,27 +139,103 @@ def mu_h_solve_lanes_twin(v, w, h0, max_iter: int, conv_eps: float,
 
         h = h0[..., g0:g0 + group] * norm[:, :, None]
         num, _ = partials(h, False)
-        active = torch.ones((b, vg.shape[-1]), dtype=torch.bool,
-                            device=v.device)
-        trips = torch.zeros(active.shape, dtype=torch.int32, device=v.device)
-        last = torch.full(active.shape, float("inf"), dtype=v.dtype,
-                          device=v.device)
-        for it in range(max_iter):
-            if early and not bool(active.any()):
-                break
-            h = torch.where(active[:, None, :], h * num / dph, h)
-            trips = trips + active.to(torch.int32)
-            if it == max_iter - 1:
-                break
-            num, cost = partials(h, early)
-            if early:
-                rel = torch.abs(cost - last) / torch.abs(last)
-                if it > 0:
-                    active = active & ~(rel < conv_eps)
-                last = cost
+        h, trips = _twin_trips(h, num, partials, dph, max_iter, conv_eps)
         h_out.append(h)
         trips_out.append(trips)
     return torch.cat(h_out, dim=-1), torch.cat(trips_out, dim=-1)
+
+
+# The narrow path of csrc/mu_h_solve.cu: the most columns a lane it takes
+# (MU_H_NARROW_MAX, N*), its cluster size (MU_H_NARROW_CLUSTER) and warps a
+# block (1,024 threads over the cluster).
+NARROW_MAX = 4
+NARROW_CLUSTER = 8
+NARROW_WARPS = 32 // NARROW_CLUSTER
+
+
+def _tree_sum(parts):
+    """The narrow kernel's sum of its warps' partials: part i plus part
+    i + W/2, then pairwise for k = W/4, ..., 1 (at 4 warps (p0 + p2) +
+    (p1 + p3))."""
+    w = len(parts)
+    acc = [parts[i] + parts[i + w // 2] for i in range(w // 2)]
+    k = w // 4
+    while k >= 1:
+        acc = [acc[i] + acc[i + k] for i in range(k)]
+        k //= 2
+    return acc[0]
+
+
+def _narrow_warp_rows(nf: int, nc: int) -> list[list[int]]:
+    """The narrow kernel's rows of a slice of nf rows, a list a warp:
+    groups of 8 // nc rows dealt to the warps by group index, then the rows
+    past the last full group one at a time, continuing the round."""
+    g = 8 // nc
+    ng = nf // g
+    out = [[] for _ in range(NARROW_WARPS)]
+    for i in range(ng):
+        out[i % NARROW_WARPS] += range(i * g, (i + 1) * g)
+    for k in range(nf - ng * g):
+        out[(ng + k) % NARROW_WARPS].append(ng * g + k)
+    return out
+
+
+def mu_h_solve_lanes_narrow_twin(v, w, h0, max_iter: int, conv_eps: float,
+                                 sparsity: float, flr: float):
+    """Plain version of ``csrc/mu_h_solve.cu``'s narrow schedule (N <= N*
+    columns a lane), for the tests (nothing on the main path uses it): F
+    split into ``NARROW_CLUSTER`` row slices as the kernel splits it, each
+    slice's rows dealt to ``NARROW_WARPS`` warps as the kernel deals them
+    (``_narrow_warp_rows``), each sum over F taken as the warps' partials
+    added in the kernel's tree (``_tree_sum``) and the slices' sums in
+    slice order from zero: the partial numerators and the
+    KL terms; W's sums of squares and raw column sums in slice order, 1'W as
+    the raw sum over the norm; the cost as the KL sum plus sparsity * sum(h).
+    The trips as in ``_twin_trips``.  Same arguments and results as
+    ``mu_h_solve_lanes``."""
+    b, f, n = v.shape
+    r = w.shape[-1]
+    if not 1 <= n <= 4:
+        raise ValueError(f"the narrow path takes 1 to 4 columns, not {n}")
+    nc = 1 if n == 1 else 2 if n == 2 else 4
+    h0 = h0.expand(b, r, n)
+    slices = _row_slices(f, NARROW_CLUSTER)
+    warp_rows = [[torch.as_tensor([s.start + i for i in rows],
+                                  dtype=torch.long, device=v.device)
+                  for rows in _narrow_warp_rows(s.stop - s.start, nc)]
+                 for s in slices]
+    v = torch.clamp(v, min=flr)
+    ss, cs = 0.0, 0.0
+    for s in slices:
+        ss = ss + torch.sum(w[:, s] * w[:, s], dim=1)
+        cs = cs + torch.sum(w[:, s], dim=1)
+    norm = torch.sqrt(ss)
+    safe = torch.where(norm > 0.0, norm, torch.ones_like(norm))
+    w = w / safe[:, None, :]
+    dph = torch.clamp(cs / safe + sparsity, min=flr)[:, :, None]
+
+    def partials(h, cost):
+        num, div = 0.0, 0.0
+        for rows in warp_rows:
+            nums, kls = [], []
+            for idx in rows:
+                if len(idx) == 0:
+                    nums.append(0.0)
+                    kls.append(0.0)
+                    continue
+                wk, vk = w[:, idx], v[:, idx]
+                lam = torch.clamp(torch.matmul(wk, h), min=flr)
+                u = vk / lam
+                nums.append(torch.matmul(wk.transpose(-1, -2), u))
+                kls.append(torch.sum(vk * torch.log(u) - vk + lam, dim=1)
+                           if cost else 0.0)
+            num = num + _tree_sum(nums)
+            div = div + _tree_sum(kls)
+        return num, div + sparsity * torch.sum(h, dim=1)
+
+    h = h0 * norm[:, :, None]
+    num, _ = partials(h, False)
+    return _twin_trips(h, num, partials, dph, max_iter, conv_eps)
 
 
 def mu_h_solve_columns_ref(v, w, h0, max_iter: int, conv_eps: float,
@@ -159,9 +273,7 @@ def mu_w_solve_lanes_twin(v, w0, h, active, max_iter: int, conv_eps: float,
     last trip's L is skipped, as in the kernel.  Same arguments and results
     as ``mu_w_solve_lanes``."""
     b, f, _ = v.shape
-    base, rem = divmod(f, cluster)
-    cuts = [k * base + min(k, rem) for k in range(cluster + 1)]
-    rows = [slice(cuts[k], cuts[k + 1]) for k in range(cluster)]
+    rows = _row_slices(f, cluster)
 
     def over_slices(fn):
         tot = 0.0
@@ -292,17 +404,21 @@ def h_solve_lanes_shape(b: int, f: int, r: int, n: int) -> dict:
     """K1's launch for B lanes of (F, R, N columns): cluster size, group
     (columns a cluster), groups a lane, shared-memory bytes and threads per
     block, clusters the card holds at once, the lanes solved in full
-    groups, the narrower group of the last wave's lanes, and the clusters
-    launched.  Needs the built library and the card."""
+    groups, the narrower group of the last wave's lanes, the clusters
+    launched, the path ("wide" or "narrow": one cluster a lane, the group N
+    padded to 1, 2 or 4) and the waves of resident clusters.  Needs the
+    built library and the card."""
     import ctypes
 
     from se_snmf_nat_tpu_torch.kernels.build import load
-    out = (ctypes.c_int * 9)()
+    out = (ctypes.c_int * 11)()
     rc = load().lib.mu_h_solve_lanes_shape(b, f, r, n, ctypes.addressof(out))
     _raise_on(rc, "mu_h_solve_lanes", _GROUP)
-    return dict(zip(("cluster", "group", "groups", "smem_bytes", "threads",
-                     "resident_clusters", "lanes_full", "tail_group",
-                     "clusters"), out))
+    shape = dict(zip(("cluster", "group", "groups", "smem_bytes", "threads",
+                      "resident_clusters", "lanes_full", "tail_group",
+                      "clusters", "path", "waves"), out))
+    shape["path"] = ("wide", "narrow")[shape["path"]]
+    return shape
 
 
 def mu_h_solve_columns(v: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,

@@ -219,10 +219,11 @@ def test_cuda_kernels_match_plain_versions():
 @pytest.mark.gpu
 def test_cuda_h_lanes_one_column_matches_plain_version():
     """K1 at the exact plan's shape, one column a lane (F=513 and the Mel
-    F=64, R=200, cap 100 and 15, eps 1e-3) at B=1, 16 and 17: held to the
-    plain version with the trip counts compared, two launches the same
-    bits, and the column alone the same bits as the first of 88 columns of
-    its lane (the three padded columns of its group are inert)."""
+    F=64, R=200, cap 100 and 15, eps 1e-3) at B=1, 16 and 17, on the narrow
+    path: held to the plain version with the trip counts compared, two
+    launches the same bits, and each lane alone the same bits as in its
+    batch; the same lanes at 88 columns (the wide path) held to the plain
+    version too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels are CUDA C++ for sm_90a)")
     from se_snmf_nat_tpu_torch.device import require_cuda
@@ -242,10 +243,16 @@ def test_cuda_h_lanes_one_column_matches_plain_version():
         _hold_to_plain(h, trips, mu.mu_h_solve_lanes_ref, args, cols)
         h2, trips2 = mu.mu_h_solve_lanes(*args)
         assert torch.equal(h, h2) and torch.equal(trips, trips2)
-        h88, trips88 = mu.mu_h_solve_lanes(t(v), t(w), t(h0), cap, 1e-3, 5.0,
-                                           1e-9)
-        assert torch.equal(h88[:, :, :1], h)
-        assert torch.equal(trips88[:, :1], trips)
+        assert mu.h_solve_lanes_shape(b, f, 200, 1)["path"] == "narrow"
+        for i in {0, b - 1}:
+            hi, ti = mu.mu_h_solve_lanes(t(v1[i:i + 1]), t(w[i:i + 1]),
+                                         t(h01), cap, 1e-3, 5.0, 1e-9)
+            assert torch.equal(h[i:i + 1], hi) and torch.equal(trips[i:i + 1],
+                                                               ti)
+        args88 = (t(v), t(w), t(h0), cap, 1e-3, 5.0, 1e-9)
+        assert mu.h_solve_lanes_shape(b, f, 200, 88)["path"] == "wide"
+        h88, trips88 = mu.mu_h_solve_lanes(*args88)
+        _hold_to_plain(h88, trips88, mu.mu_h_solve_lanes_ref, args88, cols)
 
 
 @pytest.mark.gpu
