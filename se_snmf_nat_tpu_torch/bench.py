@@ -766,14 +766,14 @@ def run_trace(trace_dir: str, device=None, reference_root=None, cfg=None,
     trace``) of one ``enhance`` on the block-adaptive plan at K=32, after
     an untraced warm call."""
     from se_snmf_nat_tpu_torch.config import default_config
-    from se_snmf_nat_tpu_torch.runtime.profiling import annotate, trace
+    from se_snmf_nat_tpu_torch.runtime.profiling import span, trace
     dev = resolve_device(device)
     cfg = cfg or default_config()
     x, _, bases, kind = bench_inputs(cfg, reference_root, n_samples)
     enh = _enhancer(cfg, bases, dev, block_adapt=32)
     y = enh.enhance(x)                                      # warm
     with trace(trace_dir):
-        with annotate("block_adaptive_enhance"):
+        with span("block_adaptive_enhance"):
             y = enh.enhance(x)
     files = [str(p.relative_to(trace_dir))
              for p in Path(trace_dir).rglob("*") if p.is_file()]

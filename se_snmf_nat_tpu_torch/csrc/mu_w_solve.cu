@@ -52,6 +52,9 @@
 // * The last trip's L = W H is never read and is skipped.
 // * Inactive lanes leave after the entry normalisation (one cluster
 //   reduction) without loading V or H.
+// * The work tally: where `counts` is not null, each active lane adds its
+//   trips to counts[0] and 1 to counts[1] at exit (one thread a lane), so
+//   the caller can tell the work the launches ran from the launches.
 //
 // Shared memory per block (floats; FP = ceil(F/C) padded to 4, RP and MP = R
 // and M padded to 4, W's row stride WS = RP + 4):
@@ -343,9 +346,9 @@ __device__ void store_w(const Ctx& x, float* wl) {
 __global__ void __launch_bounds__(THREADS, 2)
 w_lanes_kernel(const float* __restrict__ v, const float* __restrict__ w0,
                const float* __restrict__ h, const int* __restrict__ active,
-               float* __restrict__ w_out, int* __restrict__ trips_out, int F,
-               int R, int M, int max_iter, float conv_eps, float sparsity,
-               float flr) {
+               float* __restrict__ w_out, int* __restrict__ trips_out,
+               unsigned long long* __restrict__ counts, int F, int R, int M,
+               int max_iter, float conv_eps, float sparsity, float flr) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const Layout l = layout(F, R, M);
@@ -522,7 +525,13 @@ w_lanes_kernel(const float* __restrict__ v, const float* __restrict__ w0,
   }
   cluster.sync();   // no block leaves while a peer may still read it
   store_w(x, wl);
-  if (rank == 0 && tid == 0) trips_out[b] = trips;
+  if (rank == 0 && tid == 0) {
+    trips_out[b] = trips;
+    if (counts != nullptr) {
+      atomicAdd(counts, (unsigned long long)trips);
+      atomicAdd(counts + 1, 1ULL);
+    }
+  }
 }
 
 // The launch of B lanes in clusters of C.
@@ -577,22 +586,24 @@ extern "C" int mu_w_solve_lanes_shape(int B, int F, int R, int M, int* out) {
 }
 
 // C entry.  v (B,F,M), w0 (B,F,R), h (B,R,M), active (B,) int32; outputs
-// w (B,F,R) and the per-lane trip counts (B,).  Launches on `stream`, does
-// not synchronise; returns the launch's error (a refused cluster launch
-// included), or -1 as mu_w_solve_lanes_shape.
+// w (B,F,R) and the per-lane trip counts (B,); `counts` (2,) uint64, or
+// null, is added to: the active lanes' trips and their number.  Launches
+// on `stream`, does not synchronise; returns the launch's error (a refused
+// cluster launch included), or -1 as mu_w_solve_lanes_shape.
 extern "C" int mu_w_solve_lanes(const float* v, const float* w0,
                                 const float* h, const int* active, float* w,
-                                int* trips, int B, int F, int R, int M,
-                                int max_iter, float conv_eps, float sparsity,
-                                float flr, void* stream) {
+                                int* trips, unsigned long long* counts, int B,
+                                int F, int R, int M, int max_iter,
+                                float conv_eps, float sparsity, float flr,
+                                void* stream) {
   if (B == 0) return 0;
   int bytes = 0;
   const int rc = prepare(F, R, M, bytes);
   if (rc != 0) return rc;
   Launch l(B, bytes, static_cast<cudaStream_t>(stream));
   cudaError_t err = cudaLaunchKernelEx(&l.cfg, w_lanes_kernel, v, w0, h,
-                                       active, w, trips, F, R, M, max_iter,
-                                       conv_eps, sparsity, flr);
+                                       active, w, trips, counts, F, R, M,
+                                       max_iter, conv_eps, sparsity, flr);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -43,8 +43,8 @@ SIGNATURES = {
     "mu_h_solve_columns": [_P, _L, _L, _P, _P, _L, _L, _P, _L, _L, _P, _P, _P,
                            _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     "mu_h_solve_columns_shape": [_I, _I, _I, _P],
-    "mu_w_solve_lanes": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                         _F, _P],
+    "mu_w_solve_lanes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                         _F, _F, _P],
     "mu_w_solve_lanes_shape": [_I, _I, _I, _I, _P],
     "gain_scan_lanes": [_P] * 23 + [_I] * 4 + [_F] * 8 + [_L, _I, _I, _I,
                                                          _P],

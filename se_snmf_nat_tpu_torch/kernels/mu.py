@@ -37,7 +37,10 @@ Each wrapper takes its plain version (``*_ref``) only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises; it never falls back.
 Each keeps a plain integer count of kernel launches (``.launches``); a
 launch recorded into a CUDA graph counts when the graph replays
-(``captured_launches``, ``count_replay``).
+(``captured_launches``, ``count_replay``).  K2 also tallies its work in the
+counters ``K2_COUNTERS`` (``runtime.profiling``): the lane-trips its active
+lanes ran and the number of active lanes, added by the kernel on the card
+(every replay of a graph adds too) and on the host by the plain path.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ import torch
 
 from se_snmf_nat_tpu_torch.nmf.solver import (
     SnmfParams, snmf_h_solve_columns, snmf_solve)
+
+K2_COUNTERS = ("k2.lane_trips", "k2.active_lanes")
 
 
 _TALLY: dict | None = None    # the launches a graph being captured records
@@ -534,9 +539,15 @@ def mu_w_solve_lanes(v: torch.Tensor, w0: torch.Tensor, h: torch.Tensor,
     columns arrive zeroed in w0 and in the rows of h.  Returns
     (w (B, F, R), trips (B,) int32); an inactive lane runs zero trips and
     returns its entry-normalised w0."""
+    # imported here: the runtime package imports the engine, which imports
+    # this module
+    from se_snmf_nat_tpu_torch.runtime.profiling import count, device_counters
     if v.device.type == "cpu":
-        return mu_w_solve_lanes_ref(v, w0, h, active, max_iter, conv_eps,
-                                    sparsity, flr)
+        w, trips = mu_w_solve_lanes_ref(v, w0, h, active, max_iter, conv_eps,
+                                        sparsity, flr)
+        count(K2_COUNTERS[0], int(trips.sum()))
+        count(K2_COUNTERS[1], int(active.sum()))
+        return w, trips
     if v.device.type != "cuda":
         raise ValueError(f"unsupported device {v.device}")
     from se_snmf_nat_tpu_torch.kernels.build import load
@@ -551,10 +562,11 @@ def mu_w_solve_lanes(v: torch.Tensor, w0: torch.Tensor, h: torch.Tensor,
     act = active.to(torch.int32).contiguous()
     w = torch.empty((b, f, r), dtype=torch.float32, device=dev)
     trips = torch.empty((b,), dtype=torch.int32, device=dev)
+    counts = device_counters(K2_COUNTERS, dev)
     rc = load().lib.mu_w_solve_lanes(
         v.data_ptr(), w0.data_ptr(), h.data_ptr(), act.data_ptr(),
-        w.data_ptr(), trips.data_ptr(), b, f, r, m, int(max_iter),
-        float(conv_eps), float(sparsity), float(flr),
+        w.data_ptr(), trips.data_ptr(), counts.data_ptr(), b, f, r, m,
+        int(max_iter), float(conv_eps), float(sparsity), float(flr),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "mu_w_solve_lanes", _LANE)
     count_launch(mu_w_solve_lanes)

@@ -7,11 +7,11 @@ from se_snmf_nat_tpu_torch.runtime.checkpoint import (
     save_engine_state, load_engine_state, save_adapted_dictionary,
     load_adapted_dictionary)
 from se_snmf_nat_tpu_torch.runtime.runner import BatchRunner, RunReport
-from se_snmf_nat_tpu_torch.runtime.profiling import StageTimer, trace, annotate
+from se_snmf_nat_tpu_torch.runtime.profiling import StageTimer, trace, span
 
 __all__ = [
     "save_engine_state", "load_engine_state",
     "save_adapted_dictionary", "load_adapted_dictionary",
     "BatchRunner", "RunReport",
-    "StageTimer", "trace", "annotate",
+    "StageTimer", "trace", "span",
 ]

@@ -5,10 +5,19 @@
                          activities and, where a card is present, CUDA
                          ones; a Chrome trace lands in ``dir`` (open it in
                          Perfetto or ``chrome://tracing``).
+  * ``span(name)``     — the one span primitive: while a torch profiler is
+                         active, records (name, start, end) on
+                         ``time.perf_counter`` and opens a
+                         ``torch.profiler.record_function``, so the span
+                         shows up named in a trace; otherwise a flag test
+                         and a context manager.  ``request(first)`` and
+                         ``stage(name)`` are spans that tile one request
+                         stage by stage; ``count`` and ``device_counters``
+                         keep counters; ``spans()`` and ``counters()`` read
+                         the profiled session's.
   * ``StageTimer``     — named wall-clock stages with audio-second
-                         accounting (a copy of the reference's).
-  * ``annotate(name)`` — ``torch.profiler.record_function``, so stages show
-                         up named in a trace.
+                         accounting (a copy of the reference's); each stage
+                         is also the span ``runner.<stage>``.
   * ``measure_*``      — the serving and latency measurements of the
                          ``bench`` command, each with the reference's
                          arguments, defaults and report keys.
@@ -32,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import json
 import subprocess
+import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -52,13 +62,218 @@ def trace(log_dir: str):
         activities.append(ProfilerActivity.CUDA)
     out = Path(log_dir)
     out.mkdir(parents=True, exist_ok=True)
+    RECORDER.live = False                   # a session of its own
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(str(out / f"trace_{time.time_ns()}.json"))
 
 
-def annotate(name: str):
-    return torch.profiler.record_function(name)
+# ------------------------------------------------------------------- spans
+#
+# What happens inside a request, named on the host's clock.  Nothing is
+# recorded unless a torch profiler is active, so the spans cost a request
+# one flag test each when nobody looks.  A profiled session starts at the
+# first span that finds the profiler on after one that found it off (or
+# after ``trace`` opened the profiler; two profilers opened one after the
+# other with no span between them are one session): the span buffer is
+# cleared and the counters' starting values are taken (one device-side copy
+# a counter buffer); ``spans()`` and ``counters()`` give that session's,
+# also after the profiler has stopped, until the next session starts.
+# Spans and kernel intervals share ``time.perf_counter`` once the kernels
+# are moved onto it by synchronisation markers.
+
+SPAN_CAP = 1 << 20          # spans a session keeps; the rest are counted
+
+
+class _Open(threading.local):
+    """The request open on this thread: its depth and its open stage."""
+    depth = 0
+    stage = None
+
+
+class Recorder:
+    """The process's spans and counters.
+
+    Host counters (``count``) are running totals; device counters are
+    int64 buffers written by kernels (``device_counters``: one buffer a set
+    of names and a device, allocated once and never moved, so a CUDA graph
+    captured later keeps a valid pointer).  Both are read as the change
+    since the session's start."""
+
+    def __init__(self):
+        self.live = False
+        self.spans: list = []
+        self.dropped = 0
+        self.host: dict[str, int] = {}
+        self.host_start: dict[str, int] = {}
+        self.device: dict = {}          # (names, device) -> (buf, start)
+        self.open = _Open()
+        self.lock = threading.Lock()    # for the host counters
+
+    def start_session(self) -> None:
+        self.spans = []
+        self.dropped = 0
+        with self.lock:
+            self.host_start = dict(self.host)
+        for buf, start in self.device.values():
+            if not torch.cuda.is_current_stream_capturing():
+                start.copy_(buf)
+        self.live = True
+
+    def add(self, name: str, start: float, end: float) -> None:
+        if len(self.spans) < SPAN_CAP:
+            self.spans.append((name, start, end))
+        else:
+            self.dropped += 1
+
+    def device_counters(self, names: tuple, device) -> torch.Tensor:
+        key = (names, device)
+        entry = self.device.get(key)
+        if entry is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"the counters {names} are allocated at "
+                                   f"their first use, which must not be "
+                                   f"captured into a CUDA graph")
+            buf = torch.zeros(len(names), dtype=torch.int64, device=device)
+            entry = self.device[key] = (buf, torch.zeros_like(buf))
+        return entry[0]
+
+    def counters(self) -> dict[str, int]:
+        with self.lock:
+            out = {k: v - self.host_start.get(k, 0)
+                   for k, v in self.host.items()}
+        for (names, _), (buf, start) in self.device.items():
+            for name, v in zip(names, (buf - start).tolist()):
+                out[name] = out.get(name, 0) + int(v)
+        return out
+
+
+RECORDER = Recorder()
+_profiler_on = torch._C._autograd._profiler_enabled
+
+
+class _Off:
+    """The span of nobody looking."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    """An open span: the record_function's enter and exit lie inside it."""
+    __slots__ = ("name", "start", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def begin(self, t: float) -> "_Span":
+        self.start = t
+        self._rf = torch.profiler.record_function(self.name)
+        self._rf.__enter__()
+        return self
+
+    def end(self, t: float | None = None) -> None:
+        self._rf.__exit__(None, None, None)
+        RECORDER.add(self.name, self.start,
+                     time.perf_counter() if t is None else t)
+
+    def __enter__(self):
+        return self.begin(time.perf_counter())
+
+    def __exit__(self, *exc):
+        self.end()
+        return False
+
+
+def span(name: str):
+    """A named span around a ``with`` block (see above)."""
+    if _profiler_on():
+        if not RECORDER.live:
+            RECORDER.start_session()
+        return _Span(name)
+    RECORDER.live = False
+    return _OFF
+
+
+class _Request:
+    """A request tiled by its stages: entering opens ``first`` (or, inside
+    an open request, moves it to ``first``); leaving the outermost request
+    ends whichever stage is open."""
+    __slots__ = ("first",)
+
+    def __init__(self, first: str):
+        self.first = first
+
+    def __enter__(self):
+        op = RECORDER.open
+        op.depth += 1
+        if op.stage is None:
+            op.stage = _Span(self.first).begin(time.perf_counter())
+        else:
+            stage(self.first)
+        return self
+
+    def __exit__(self, *exc):
+        op = RECORDER.open
+        op.depth -= 1
+        if op.depth == 0 and op.stage is not None:
+            op.stage.end()
+            op.stage = None
+        return False
+
+
+def request(first: str):
+    """Around a request whose stages ``stage`` switches between: the
+    stages' spans tile it, one clock reading ending one and starting the
+    next."""
+    if _profiler_on():
+        if not RECORDER.live:
+            RECORDER.start_session()
+        return _Request(first)
+    RECORDER.live = False
+    return _OFF
+
+
+def stage(name: str) -> None:
+    """The open request's next stage (nothing outside a profiled request,
+    nor when ``name`` is the stage already open)."""
+    cur = RECORDER.open.stage
+    if cur is None or cur.name == name:
+        return
+    t = time.perf_counter()
+    cur.end(t)
+    RECORDER.open.stage = _Span(name).begin(t)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the host counter ``name``."""
+    with RECORDER.lock:
+        RECORDER.host[name] = RECORDER.host.get(name, 0) + int(n)
+
+
+def device_counters(names: tuple, device) -> torch.Tensor:
+    """The int64 buffer of the counters ``names`` on ``device``, for a
+    kernel to add to."""
+    return RECORDER.device_counters(names, device)
+
+
+def spans() -> list[tuple[str, float, float]]:
+    """The profiled session's spans: (name, start, end), seconds on
+    ``time.perf_counter``, in the order they ended."""
+    return list(RECORDER.spans)
+
+
+def counters() -> dict[str, int]:
+    """Each counter's change since the profiled session started (one
+    transfer a device buffer)."""
+    return RECORDER.counters()
 
 
 @dataclass
@@ -72,7 +287,8 @@ class StageTimer:
     def stage(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(f"runner.{name}"):
+                yield
         finally:
             self.stages[name] = self.stages.get(name, 0.0) \
                 + time.perf_counter() - t0

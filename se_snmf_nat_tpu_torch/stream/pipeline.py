@@ -33,6 +33,7 @@ from se_snmf_nat_tpu_torch.enhance.engine import make_engine
 from se_snmf_nat_tpu_torch.enhance.state import (
     EngineState, batch_state, lane_state)
 from se_snmf_nat_tpu_torch.io.wavio import enhanced_quantize
+from se_snmf_nat_tpu_torch.runtime.profiling import count, request, stage
 from se_snmf_nat_tpu_torch.stream.block_adaptive import (
     make_block_adaptive_run)
 from se_snmf_nat_tpu_torch.stream.fast_pipeline import (
@@ -270,49 +271,66 @@ class SnmfEnhancer(nn.Module):
         ``micro_batch`` splits the batch into fixed-size chunks, all
         enqueued before any result is fetched; the tail chunk is padded
         with silent lanes.  None = one chunk.  With ``quantize=False`` the
-        floats returned are the int16-written values."""
-        s = self.cfg.signal
-        shift = s.frameshift
-        n_flush = self.cfg.delay + 1
-        n_hops_all = np.asarray([len(x) // shift for x in xs], np.int64)
-        t_true_all = n_hops_all + n_flush
-        t_max = -(-int(t_true_all.max()) // self.frame_bucket) \
-            * self.frame_bucket
-        np_dt = np.float64 if self.dtype == torch.float64 else np.float32
-        mb = len(xs) if not micro_batch else min(int(micro_batch), len(xs))
-        states = batch_state(self._state0, mb) if self.fast_run is None \
-            else None
+        floats returned are the int16-written values.
 
-        def dispatch(chunk, n_hops, t_true):
-            n = len(chunk)
-            smp = np.zeros((mb, t_max * shift), np.float64)
-            for i, x in enumerate(chunk):
-                m = int(n_hops[i]) * shift       # trailing partial hop drops
-                smp[i, :m] = np.asarray(x)[:m]
-            nh = np.zeros((mb,), np.int64)
-            nh[:n] = n_hops
-            tt = np.full((mb,), n_flush, np.int64)
-            tt[:n] = t_true
-            smp_dev = torch.as_tensor(pack_samples_for_upload(smp, np_dt),
-                                      device=self.device).to(self.dtype)
-            frames = stream_frames_torch(
-                smp_dev, torch.as_tensor(nh, device=self.device),
-                s.framelength, shift)
-            ys, _ = self.run_frames(frames, states, tt)
-            return matlab_int16_write_torch(ys)  # on the device, not fetched
+        Traced, the call is tiled by the spans ``batch.prep`` (the sample
+        matrix and its upload), ``batch.launch`` (framing, the run, the
+        int16 write), ``batch.fetch`` (the PCM to the host) and
+        ``batch.emit`` (per-lane quantize), each chunk with its own prep,
+        launch and fetch; the counters ``batch.frames_computed`` (lanes x
+        the bucket's frames) and ``batch.frames_true`` (the real lanes'
+        hops + delay + 1) give the padding."""
+        with request("batch.prep"):
+            s = self.cfg.signal
+            shift = s.frameshift
+            n_flush = self.cfg.delay + 1
+            n_hops_all = np.asarray([len(x) // shift for x in xs], np.int64)
+            t_true_all = n_hops_all + n_flush
+            t_max = -(-int(t_true_all.max()) // self.frame_bucket) \
+                * self.frame_bucket
+            np_dt = np.float64 if self.dtype == torch.float64 else np.float32
+            mb = len(xs) if not micro_batch else min(int(micro_batch),
+                                                     len(xs))
+            states = batch_state(self._state0, mb) \
+                if self.fast_run is None else None
 
-        pending = [dispatch(xs[c0: c0 + mb], n_hops_all[c0: c0 + mb],
-                            t_true_all[c0: c0 + mb])
-                   for c0 in range(0, len(xs), mb)]
-        outs = []
-        start = self.cfg.delay * shift
-        for ci, ys_dev in enumerate(pending):
-            ys = ys_dev.cpu().numpy()
-            for i in range(min(mb, len(xs) - ci * mb)):
-                g = ci * mb + i
-                emit = ys[i, start: start
-                          + (int(t_true_all[g]) - self.cfg.delay) * shift]
-                outs.append(matlab_wavwrite_quantize(
-                    emit.astype(np.float64) / 32767.0) if quantize
-                    else emit.astype(np.float64))
-        return outs
+            def dispatch(chunk, n_hops, t_true):
+                stage("batch.prep")
+                n = len(chunk)
+                count("batch.frames_computed", mb * t_max)
+                count("batch.frames_true", int(t_true.sum()))
+                smp = np.zeros((mb, t_max * shift), np.float64)
+                for i, x in enumerate(chunk):
+                    m = int(n_hops[i]) * shift   # trailing partial hop drops
+                    smp[i, :m] = np.asarray(x)[:m]
+                nh = np.zeros((mb,), np.int64)
+                nh[:n] = n_hops
+                tt = np.full((mb,), n_flush, np.int64)
+                tt[:n] = t_true
+                smp_dev = torch.as_tensor(
+                    pack_samples_for_upload(smp, np_dt),
+                    device=self.device).to(self.dtype)
+                stage("batch.launch")
+                frames = stream_frames_torch(
+                    smp_dev, torch.as_tensor(nh, device=self.device),
+                    s.framelength, shift)
+                ys, _ = self.run_frames(frames, states, tt)
+                return matlab_int16_write_torch(ys)  # on the device
+
+            pending = [dispatch(xs[c0: c0 + mb], n_hops_all[c0: c0 + mb],
+                                t_true_all[c0: c0 + mb])
+                       for c0 in range(0, len(xs), mb)]
+            outs = []
+            start = self.cfg.delay * shift
+            for ci, ys_dev in enumerate(pending):
+                stage("batch.fetch")
+                ys = ys_dev.cpu().numpy()
+                stage("batch.emit")
+                for i in range(min(mb, len(xs) - ci * mb)):
+                    g = ci * mb + i
+                    emit = ys[i, start: start
+                              + (int(t_true_all[g]) - self.cfg.delay) * shift]
+                    outs.append(matlab_wavwrite_quantize(
+                        emit.astype(np.float64) / 32767.0) if quantize
+                        else emit.astype(np.float64))
+            return outs

@@ -32,6 +32,14 @@ Both wires add an output hop's chunks in the order of ``StreamingSession``
 and ``dsp.stft.overlap_add`` (newest frame first), so on one device and
 dtype a fleet lane and a solo session differ by nothing the overlap-add
 introduces.
+
+Traced (``runtime.profiling``), a push is tiled by the spans of
+``StreamingSession``'s stages: ``stream.prep`` (the hold, the queue, the
+hops stacked, the int16 test, the uploads), ``stream.launch``
+(``_device_tick``, or analysis, the frame loop and synthesis),
+``stream.fetch`` (the PCM or frames to the host, or the pipelined tick's
+settle) and ``stream.emit`` (``_emit_pcm``, the overlap-add on the frames
+wire, ``_assemble``, the final stack).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 from se_snmf_nat_tpu_torch.device import host_array
 from se_snmf_nat_tpu_torch.enhance.state import EngineState, batch_state
 from se_snmf_nat_tpu_torch.io.wavio import enhanced_quantize
+from se_snmf_nat_tpu_torch.runtime.profiling import request, stage
 from se_snmf_nat_tpu_torch.stream.block_adaptive import (
     make_block_step, ring_ptr0, rings_to_shift_layout)
 from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_int16_write_torch
@@ -228,13 +237,18 @@ class MultiStreamSession:
         else:
             hops_up = np.asarray(hops, self._np_dtype)
         hops_dev = self._upload(hops_up).to(enh.dtype)     # (B, K, shift)
-        pcm = self._device_tick(hops_dev, self._upload(l0))
+        l0_dev = self._upload(l0)
+        stage("stream.launch")
+        pcm = self._device_tick(hops_dev, l0_dev)
         self._pending = []
         self._apply_deferred_adapt()
         # the host history is stale now; the device copy holds until a
         # frames-path tick pulls it (_sync_host_recent)
         if not self._pipeline:
-            return self._emit_pcm(pcm.cpu().numpy(), l0, k)
+            stage("stream.fetch")
+            pcm = pcm.cpu().numpy()
+            stage("stream.emit")
+            return self._emit_pcm(pcm, l0, k)
         # pipelined: leave this tick in flight and hand back the one before
         if self._dev.type == "cuda":
             buf = torch.empty(pcm.shape, dtype=pcm.dtype, pin_memory=True)
@@ -272,9 +286,12 @@ class MultiStreamSession:
         if tick is None:
             return []
         buf, done, l0, k = tick
+        stage("stream.fetch")
         if done is not None:
             done.synchronize()
-        return self._emit_pcm(buf.numpy(), l0, k)
+        pcm = buf.numpy()
+        stage("stream.emit")
+        return self._emit_pcm(pcm, l0, k)
 
     def _emit_pcm(self, pcm: np.ndarray, l0: np.ndarray, k: int):
         shift = self._s.frameshift
@@ -296,10 +313,12 @@ class MultiStreamSession:
         frames down, overlap-add on the host (also the samples wire's path
         for partial blocks and broken chains)."""
         enh = self.enh
+        stage("stream.prep")
         frames = self._upload(np.stack(self._pending, axis=1).astype(
             self._np_dtype)).to(enh.dtype)
-        mag, phase = enh._analysis(frames)
         l0_dev = self._upload(l0)
+        stage("stream.launch")
+        mag, phase = enh._analysis(frames)
         if self._ba_step is not None and k == self._block:
             ls = l0_dev[:, None] + torch.arange(k, device=self._dev)
             self.state, self._ba_ptr, xm = self._ba_step(
@@ -313,7 +332,10 @@ class MultiStreamSession:
                 self._ba_ptr = ring_ptr0(self.n, self._dev)
             self.state, (xm,) = enh.frame_loop(
                 enh.engine, mag, self.state, [k] * self.n, l0_dev)
-        outs = host_array(enh._synthesis(xm, phase))     # (B, k, L)
+        ys = enh._synthesis(xm, phase)
+        stage("stream.fetch")
+        outs = host_array(ys)                             # (B, k, L)
+        stage("stream.emit")
         self._pending = []
         self._apply_deferred_adapt()
         hops, self._recent = _hops_from_frames(self._recent, outs,
@@ -324,6 +346,7 @@ class MultiStreamSession:
         """Pull the overlap-add history off the device before a frames-path
         tick (where the host's copy counts); the device copies go stale."""
         if self._samples and self._dev_synced:
+            stage("stream.fetch")
             self._recent = host_array(self._recent_dev).copy()
             self._dev_synced = False
 
@@ -370,28 +393,35 @@ class MultiStreamSession:
         never leave the device) and the chunks of a frames-path tick are
         the floats before it; at ``quantize=True`` both give the same int16
         (the write leaves written values as they are)."""
-        # checked before anything is processed: raising afterwards would
-        # lose this call's audio with the engine state already advanced
-        if self._clocks_diverged():
-            raise ValueError("lane clocks diverged (reset_lanes was used); "
-                             "call push_per_lane for ragged emission")
-        return np.stack(self.push_per_lane(samples, quantize), axis=0)
+        with request("stream.prep"):
+            # checked before anything is processed: raising afterwards
+            # would lose this call's audio with the state already advanced
+            if self._clocks_diverged():
+                raise ValueError("lane clocks diverged (reset_lanes was "
+                                 "used); call push_per_lane for ragged "
+                                 "emission")
+            out = self.push_per_lane(samples, quantize)
+            stage("stream.emit")
+            return np.stack(out, axis=0)
 
     def push_per_lane(self, samples: np.ndarray,
                       quantize: bool = True) -> list[np.ndarray]:
         """``push`` returning one 1-D array a lane (lanes may owe different
         lengths when their clocks differ)."""
-        s = self._s
-        samples = np.asarray(samples, np.float64)
-        if samples.ndim != 2 or samples.shape[0] != self.n:
-            raise ValueError(f"push expects ({self.n}, n) samples")
-        buf = np.concatenate([self._hold, samples], axis=1)
-        emitted = []
-        while buf.shape[1] >= s.frameshift:
-            hops, buf = buf[:, : s.frameshift], buf[:, s.frameshift:]
-            emitted.extend(self._process_hop(hops))
-        self._hold = buf
-        return self._assemble(emitted, self.n, quantize)
+        with request("stream.prep"):
+            s = self._s
+            samples = np.asarray(samples, np.float64)
+            if samples.ndim != 2 or samples.shape[0] != self.n:
+                raise ValueError(f"push expects ({self.n}, n) samples")
+            buf = np.concatenate([self._hold, samples], axis=1)
+            emitted = []
+            while buf.shape[1] >= s.frameshift:
+                stage("stream.prep")
+                hops, buf = buf[:, : s.frameshift], buf[:, s.frameshift:]
+                emitted.extend(self._process_hop(hops))
+            stage("stream.emit")
+            self._hold = buf
+            return self._assemble(emitted, self.n, quantize)
 
     def flush(self, quantize: bool = True) -> np.ndarray:
         """End of stream on every lane: the partial hop is dropped and

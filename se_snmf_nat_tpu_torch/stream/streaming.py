@@ -16,6 +16,12 @@ each output hop's chunks in the order of ``dsp.stft.overlap_add`` (newest
 frame first), which makes the float32 sums the same bits as the offline
 plan's.  With ``quantize=False`` the samples come back as float64, whatever
 the session's dtype.
+
+Traced (``runtime.profiling``), a push is tiled by the spans
+``stream.prep`` (the hold, the queue, the frames' upload),
+``stream.launch`` (analysis, the frame loop or block step, synthesis),
+``stream.fetch`` (the synthesised frames to the host) and ``stream.emit``
+(overlap-add, quantize), once for each block the push completes.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from se_snmf_nat_tpu_torch.device import host_array
 from se_snmf_nat_tpu_torch.enhance.state import (
     EngineState, batch_state, lane_state)
 from se_snmf_nat_tpu_torch.io.wavio import enhanced_quantize
+from se_snmf_nat_tpu_torch.runtime.profiling import request, stage
 from se_snmf_nat_tpu_torch.stream.block_adaptive import (
     make_block_step, ring_ptr0, rings_to_shift_layout)
 
@@ -134,6 +141,7 @@ class StreamingSession:
         l0 = self._l - k + 1
         frames = torch.as_tensor(np.stack(self._pending)[None],
                                  dtype=enh.dtype, device=enh.device)
+        stage("stream.launch")
         mag, phase = enh._analysis(frames)
         if self._ba_step is not None and k == self._block:
             self._state, self._ba_ptr, xm = self._ba_step(
@@ -149,7 +157,10 @@ class StreamingSession:
                 self._ba_ptr = ring_ptr0(1, enh.device)
             self._state, (xm,) = enh.frame_loop(enh.engine, mag, self._state,
                                                 [k], l0)
-        outs = host_array(enh._synthesis(xm, phase)[0])
+        ys = enh._synthesis(xm, phase)[0]
+        stage("stream.fetch")
+        outs = host_array(ys)
+        stage("stream.emit")
         self._pending = []
         if self._deferred_adapt is not None:
             # a mid-block set_adaptation takes effect at the block boundary;
@@ -179,15 +190,18 @@ class StreamingSession:
     def push(self, samples: np.ndarray, quantize: bool = True) -> np.ndarray:
         """Feed any number of int16-scale samples; returns the finalised
         output samples available so far (possibly empty)."""
-        s = self._s
-        buf = np.concatenate([self._hold,
-                              np.asarray(samples, np.float64).reshape(-1)])
-        outs = []
-        while len(buf) >= s.frameshift:
-            hop, buf = buf[: s.frameshift], buf[s.frameshift:]
-            outs.extend(self._process_hop(hop))
-        self._hold = buf
-        return self._emit(outs, quantize)
+        with request("stream.prep"):
+            s = self._s
+            buf = np.concatenate([self._hold,
+                                  np.asarray(samples, np.float64).reshape(-1)])
+            outs = []
+            while len(buf) >= s.frameshift:
+                stage("stream.prep")
+                hop, buf = buf[: s.frameshift], buf[s.frameshift:]
+                outs.extend(self._process_hop(hop))
+            stage("stream.emit")
+            self._hold = buf
+            return self._emit(outs, quantize)
 
     def flush(self, quantize: bool = True) -> np.ndarray:
         """End of stream: drop the partial hop and process ``delay + 1``

@@ -60,7 +60,8 @@ COPIES = [
     # build/, never into native/); the names of both packages' are left out
     ("io/native.py", ("-", "_NATIVE_DIR", "_ROOT", "_SOURCE", "_LIB_PATH",
                       "_build")),
-    ("runtime/profiling.py", ("StageTimer",)),
+    # each of the port's stages is also a span (``runtime.profiling.span``)
+    ("runtime/profiling.py", ("StageTimer",), None, ("span",)),
     ("runtime/grid.py", ("NOISE_TYPES", "SNR_LIST", "_lp", "synth_noise",
                          "_write")),
     ("cli.py", ("cmd_eval",)),
@@ -90,6 +91,24 @@ class _NoImports(ast.NodeTransformer):
         return None
 
 
+class _Unwrap(ast.NodeTransformer):
+    """``with name(...):`` blocks of the port replaced by their bodies, for
+    the context managers ``names`` that the port adds around a copied
+    body."""
+
+    def __init__(self, names):
+        self.names = names
+
+    def visit_With(self, node):
+        self.generic_visit(node)
+        if len(node.items) == 1:
+            call = node.items[0].context_expr
+            if (isinstance(call, ast.Call) and isinstance(call.func, ast.Name)
+                    and call.func.id in self.names):
+                return node.body
+        return node
+
+
 class _Rename(ast.NodeTransformer):
     """``module.attr`` references of the reference turned into the port's
     own names (``{"module.attr": "name"}``)."""
@@ -105,15 +124,18 @@ class _Rename(ast.NodeTransformer):
         return self.generic_visit(node)
 
 
-def _statements(path: Path, names, rename=None):
+def _statements(path: Path, names, rename=None, unwrap=None):
     """{name: ``ast.dump``} of the module's top-level statements (functions,
     classes and assignments to one name by that name, the rest by position)
     without the module docstring and without any import line at any
     depth; ``rename`` maps the reference's ``module.attr`` references to
-    the port's names."""
+    the port's names; ``unwrap`` names the context managers whose ``with``
+    blocks count as their bodies."""
     tree = _NoImports().visit(ast.parse(path.read_text()))
     if rename:
         tree = _Rename(rename).visit(tree)
+    if unwrap:
+        tree = ast.fix_missing_locations(_Unwrap(unwrap).visit(tree))
     body = tree.body
     if (body and isinstance(body[0], ast.Expr)
             and isinstance(body[0].value, ast.Constant)):
@@ -132,12 +154,13 @@ def _statements(path: Path, names, rename=None):
     return {k: out[k] for k in names}
 
 
-@pytest.mark.parametrize("rel,names,rename",
-                         [c + (None,) * (3 - len(c)) for c in COPIES],
+@pytest.mark.parametrize("rel,names,rename,unwrap",
+                         [c + (None,) * (4 - len(c)) for c in COPIES],
                          ids=[c[0] for c in COPIES])
-def test_copy_equals_reference_outside_imports(rel, names, rename):
+def test_copy_equals_reference_outside_imports(rel, names, rename, unwrap):
     ref = _statements(ROOT / "se_snmf_nat_tpu" / rel, names, rename)
-    port = _statements(ROOT / "se_snmf_nat_tpu_torch" / rel, names)
+    port = _statements(ROOT / "se_snmf_nat_tpu_torch" / rel, names,
+                       unwrap=unwrap)
     assert ref, rel
     assert port == ref
 

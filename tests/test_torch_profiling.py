@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from se_snmf_nat_tpu.runtime.profiling import StageTimer as JStageTimer
-from se_snmf_nat_tpu_torch.runtime import annotate, trace
+from se_snmf_nat_tpu_torch.runtime import span, trace
 from se_snmf_nat_tpu_torch.runtime.profiling import StageTimer
 
 
@@ -48,7 +48,7 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     out = tmp_path / "trace"
     a = torch.arange(256.0)
     with trace(str(out)):
-        with annotate("probe"):
+        with span("probe"):
             float((a * a).sum())
     files = [p for p in out.rglob("*") if p.is_file()]
     assert files, "profiler trace produced no artifacts"

@@ -294,8 +294,8 @@ def time_clocks(which: str, dev, card):
 
         def call():
             return fn(v.data_ptr(), w0.data_ptr(), h.data_ptr(),
-                      act.data_ptr(), w.data_ptr(), trips.data_ptr(), b, 513,
-                      50, 100, 22, 0.0, 5.0, 1e-9, stream)
+                      act.data_ptr(), w.data_ptr(), trips.data_ptr(), None,
+                      b, 513, 50, 100, 22, 0.0, 5.0, 1e-9, stream)
         what = "K2 B=16 F=513 R=50 M=100, 22 fixed trips"
     else:
         n = 24576
@@ -361,8 +361,8 @@ def time_w(dev, card, names):
 
             def call():
                 rc = fn(v.data_ptr(), w0.data_ptr(), h.data_ptr(),
-                        act.data_ptr(), w.data_ptr(), trips.data_ptr(), b,
-                        513, 50, 100, cap, 0.0, 5.0, 1e-9, stream)
+                        act.data_ptr(), w.data_ptr(), trips.data_ptr(), None,
+                        b, 513, 50, 100, cap, 0.0, 5.0, 1e-9, stream)
                 if rc:
                     raise RuntimeError(f"{name}: launch error {rc}")
 
