@@ -1,7 +1,8 @@
 """MATLAB-compatibility numerics: the port's own copy of the NumPy half of
 the reference package's ``utils.matlab_compat`` (generators, rounding, the
 int16 write and the wavwrite quantisation), plus the int16 write on tensors
-(``matlab_int16_write_torch``).
+(``matlab_int16_write_torch``) and the wavwrite quantisation of int16 PCM
+as a table (``matlab_wavwrite_table``).
 
 The reference calls ``rand('seed', p.random_seed)`` before every NMF solve
 (sparse_nmf.m:112-114) and then draws ``h = rand(r, n)``.  ``rand('seed', s)``
@@ -143,6 +144,14 @@ def matlab_wavwrite_quantize(x: np.ndarray) -> np.ndarray:
     saturated.  Note the asymmetric scale (32768, not 32767)."""
     y = matlab_round(np.asarray(x, dtype=np.float64) * 32768.0)
     return np.clip(y, -32768, 32767).astype(np.int16)
+
+
+def matlab_wavwrite_table() -> np.ndarray:
+    """``matlab_wavwrite_quantize(v / 32767.0)`` for every int16 ``v``, at
+    index ``v`` read as a negative index reads (``v % 65536``): the wavwrite
+    requantisation of int16 PCM as one gather, bit for bit."""
+    v = np.arange(65536, dtype=np.uint16).view(np.int16)
+    return matlab_wavwrite_quantize(v / 32767.0)
 
 
 def matlab_int16_write_torch(y: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,9 @@ profiler; a new profiled session clears the spans and takes the counters'
 starts, and both stay readable after the profiler stops; the four stages
 tile a call of ``enhance_batch``, a ``StreamingSession.push`` and a
 samples-wire ``MultiStreamSession.push`` (one span each, end to start, their
-sum the call's wall); the padding counters on known lengths; K2's work tally
-on the plain path."""
+sum the call's wall), ``enhance_batch`` on the int16 and on the float
+upload too; the padding counters on known lengths; the lanes sent and those
+sent as int16; K2's work tally on the plain path."""
 
 import contextlib
 import time
@@ -150,6 +151,44 @@ def test_four_stages_tile_enhance_batch(block_enh):
     _assert_tiled("batch.", t0, t1)
     for a, b in zip(want, got):
         np.testing.assert_array_equal(a, b)
+
+
+def _lanes_sent_as(kind):
+    """Three lanes, integer-valued float64 (``float``), int16 (``int16``)
+    or float64 with a half sample in the second (``fraction``)."""
+    xs = [fixtures.noisy_utterance(n, seed=i)
+          for i, n in enumerate((3300, 2080, 4800))]
+    if kind == "int16":
+        return [x.astype(np.int16) for x in xs]
+    if kind == "fraction":
+        xs[1][7] += 0.5
+    return xs
+
+
+@pytest.mark.parametrize("kind", ["int16", "fraction"])
+def test_four_stages_tile_enhance_batch_on_either_upload(block_enh, kind):
+    xs = _lanes_sent_as(kind)
+    want = block_enh.enhance_batch(xs, micro_batch=None)
+    with _profiled():
+        t0 = time.perf_counter()
+        got = block_enh.enhance_batch(xs, micro_batch=None)
+        t1 = time.perf_counter()
+    _assert_tiled("batch.", t0, t1)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind,sent_int16", [("int16", 3), ("float", 3),
+                                             ("fraction", 0)])
+@pytest.mark.parametrize("micro_batch", [None, 2])
+def test_lane_counters_count_what_was_sent(block_enh, kind, sent_int16,
+                                           micro_batch):
+    with _profiled():
+        block_enh.enhance_batch(_lanes_sent_as(kind),
+                                micro_batch=micro_batch)
+    c = profiling.counters()
+    assert c["batch.lanes"] == 3
+    assert c["batch.lanes_int16"] == sent_int16
 
 
 def test_four_stages_tile_a_session_push(exact_enh):
