@@ -52,6 +52,11 @@
 //   the same stop decisions from the same sums.  Two cluster barriers a
 //   trip; a column that reaches the cap leaves after its update, so its
 //   last L is never computed.
+// * The work tally: where `counts` is not null, each column adds 1 to
+//   counts[0] and its trips to counts[1] when it is written out (rank 0,
+//   one thread a column; on the streaming path the thread that writes its
+//   trip count), so the caller can tell the work the launches ran from the
+//   columns they solved.
 // * V, H0 and H are addressed through element strides, so the fast plan
 //   hands over its frame-major spectra (B*T, F) as the (F, N) view without a
 //   transposing copy (a column is then contiguous over F), and H0 may be one
@@ -373,9 +378,10 @@ h_cols_resident_kernel(const float* __restrict__ v, long long v_sf,
                        const float* __restrict__ h0, long long h0_sr,
                        long long h0_sn, float* __restrict__ h_out,
                        long long h_sr, long long h_sn,
-                       int* __restrict__ trips_out, int F, int R, int N,
-                       int g, int max_iter, float conv_eps, float sparsity,
-                       float flr) {
+                       int* __restrict__ trips_out,
+                       unsigned long long* __restrict__ counts, int F, int R,
+                       int N, int g, int max_iter, float conv_eps,
+                       float sparsity, float flr) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const Layout l = layout(F, R, g);
@@ -495,7 +501,13 @@ h_cols_resident_kernel(const float* __restrict__ v, long long v_sf,
         const int n = x.sCol[j];
         for (int r = x.rlo + lane; r < x.rhi; r += 32)
           h_out[r * h_sr + n * h_sn] = x.sH[r * g + j];
-        if (rank == 0 && lane == 0) trips_out[n] = sK[j];
+        if (rank == 0 && lane == 0) {
+          trips_out[n] = sK[j];
+          if (counts != nullptr) {
+            atomicAdd(counts, 1ULL);
+            atomicAdd(counts + 1, (unsigned long long)sK[j]);
+          }
+        }
       }
       const int n = sNew[j];
       if (n < 0) continue;
@@ -640,15 +652,17 @@ extern "C" int mu_h_solve_columns_shape(int F, int R, int N, int* out) {
 // C entry.  v: (F, N) with element strides (v_sf, v_sn); w (F, R)
 // contiguous; h0: (R, N) with strides (h0_sr, h0_sn), h0_sn = 0 for one
 // broadcast column; outputs h (R, N) with strides (h_sr, h_sn) and the
-// per-column trip counts (N,); scratch wn, dph (R,) and w_n, w_t (F*R),
-// touched by the streaming path only.  Launches on `stream`, does not
+// per-column trip counts (N,); `counts` (2,) uint64, or null, is added
+// to: the columns solved and their trips; scratch wn, dph (R,) and w_n, w_t
+// (F*R), touched by the streaming path only.  Launches on `stream`, does not
 // synchronise, returns the launch's error, or -1 when the shape fits
 // neither path's shared memory.
 extern "C" int mu_h_solve_columns(const float* v, long long v_sf,
                                   long long v_sn, const float* w,
                                   const float* h0, long long h0_sr,
                                   long long h0_sn, float* h, long long h_sr,
-                                  long long h_sn, int* trips, float* wn,
+                                  long long h_sn, int* trips,
+                                  unsigned long long* counts, float* wn,
                                   float* dph, float* w_n, float* w_t, int F,
                                   int R, int N, int max_iter, float conv_eps,
                                   float sparsity, float flr, void* stream) {
@@ -664,12 +678,14 @@ extern "C" int mu_h_solve_columns(const float* v, long long v_sf,
     if (err != cudaSuccess) return (int)err;
     ResLaunch l(p.clusters, p.bytes, s);
     err = cudaLaunchKernelEx(&l.cfg, h_cols_resident_kernel, v, v_sf, v_sn,
-                             w, h0, h0_sr, h0_sn, h, h_sr, h_sn, trips, F, R,
-                             N, p.slots, max_iter, conv_eps, sparsity, flr);
+                             w, h0, h0_sr, h0_sn, h, h_sr, h_sn, trips,
+                             counts, F, R, N, p.slots, max_iter, conv_eps,
+                             sparsity, flr);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
   return stream_solve(v, v_sf, v_sn, w, h0, h0_sr, h0_sn, h, h_sr, h_sn,
-                      trips, wn, dph, w_n, w_t, F, R, N, max_iter, conv_eps,
-                      sparsity, flr, p.threads, (size_t)p.bytes, s);
+                      trips, counts, wn, dph, w_n, w_t, F, R, N, max_iter,
+                      conv_eps, sparsity, flr, p.threads, (size_t)p.bytes,
+                      s);
 }

@@ -253,8 +253,9 @@ h_cols_stream_kernel(const float* __restrict__ v, long long v_sf,
                      long long h0_sn, const float* __restrict__ wn,
                      const float* __restrict__ dph, float* __restrict__ h_out,
                      long long h_sr, long long h_sn,
-                     int* __restrict__ trips_out, int F, int R, int N,
-                     int max_iter, float conv_eps, float sparsity,
+                     int* __restrict__ trips_out,
+                     unsigned long long* __restrict__ counts, int F, int R,
+                     int N, int max_iter, float conv_eps, float sparsity,
                      float flr) {
   extern __shared__ __align__(16) float smem[];
   const Tile t = carve(smem, F, R);
@@ -284,15 +285,26 @@ h_cols_stream_kernel(const float* __restrict__ v, long long v_sf,
     const int n = n0 + j;
     if (n < N) h_out[r * h_sr + n * h_sn] = t.sH[r * TN + j];
   }
-  if (tid < TN && n0 + tid < N) trips_out[n0 + tid] = t.sTrips[tid];
+  if (tid < TN && n0 + tid < N) {
+    const int k = t.sTrips[tid];
+    trips_out[n0 + tid] = k;
+    if (counts != nullptr) {
+      atomicAdd(counts, 1ULL);
+      atomicAdd(counts + 1, (unsigned long long)k);
+    }
+  }
 }
 
 // The streaming path's two launches: W normalised into the scratch buffers
-// (wn, dph (R,); w_n, w_t (F*R)), then one block per 16-column tile.
+// (wn, dph (R,); w_n, w_t (F*R)), then one block per 16-column tile, each
+// column adding 1 and its trips to `counts` (2,) unless it is null (an
+// atomic a column where its trip count is written: a sum a tile by one
+// thread cost the solve 4 registers and ~13% at R=1000 on the H100).
 inline int stream_solve(const float* v, long long v_sf, long long v_sn,
                         const float* w, const float* h0, long long h0_sr,
                         long long h0_sn, float* h, long long h_sr,
-                        long long h_sn, int* trips, float* wn, float* dph,
+                        long long h_sn, int* trips,
+                        unsigned long long* counts, float* wn, float* dph,
                         float* w_n, float* w_t, int F, int R, int N,
                         int max_iter, float conv_eps, float sparsity,
                         float flr, int threads, size_t smem, cudaStream_t s) {
@@ -306,7 +318,7 @@ inline int stream_solve(const float* v, long long v_sf, long long v_sn,
   if (err != cudaSuccess) return (int)err;
   h_cols_stream_kernel<<<(N + TN - 1) / TN, threads, smem, s>>>(
       v, v_sf, v_sn, w_n, w_t, h0, h0_sr, h0_sn, wn, dph, h, h_sr, h_sn,
-      trips, F, R, N, max_iter, conv_eps, sparsity, flr);
+      trips, counts, F, R, N, max_iter, conv_eps, sparsity, flr);
   return (int)cudaGetLastError();
 }
 

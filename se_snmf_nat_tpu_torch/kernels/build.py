@@ -41,7 +41,7 @@ SIGNATURES = {
                          _F, _P],
     "mu_h_solve_lanes_shape": [_I, _I, _I, _I, _P],
     "mu_h_solve_columns": [_P, _L, _L, _P, _P, _L, _L, _P, _L, _L, _P, _P, _P,
-                           _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
+                           _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     "mu_h_solve_columns_shape": [_I, _I, _I, _P],
     "mu_w_solve_lanes": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                          _F, _F, _P],

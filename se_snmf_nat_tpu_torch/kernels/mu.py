@@ -40,7 +40,9 @@ launch recorded into a CUDA graph counts when the graph replays
 (``captured_launches``, ``count_replay``).  K2 also tallies its work in the
 counters ``K2_COUNTERS`` (``runtime.profiling``): the lane-trips its active
 lanes ran and the number of active lanes, added by the kernel on the card
-(every replay of a graph adds too) and on the host by the plain path.
+(every replay of a graph adds too) and on the host by the plain path.  K3
+tallies its own in ``K3_COUNTERS``: the columns it solved and their trips,
+added by either of its paths on the card and on the host by the plain path.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from se_snmf_nat_tpu_torch.nmf.solver import (
     SnmfParams, snmf_h_solve_columns, snmf_solve)
 
 K2_COUNTERS = ("k2.lane_trips", "k2.active_lanes")
+K3_COUNTERS = ("k3.columns", "k3.column_trips")
 
 
 _TALLY: dict | None = None    # the launches a graph being captured records
@@ -471,10 +474,15 @@ def mu_h_solve_columns(v: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
     transposed view), w (F, R) contiguous.  Returns (h (R, N), trips (N,)
     int32): each column freezes at its own relative-cost stop;
     ``conv_eps <= 0`` runs ``max_iter`` trips.  On the card h is the
-    transposed view of a frame-major (N, R) tensor."""
+    transposed view of a frame-major (N, R) tensor.  The columns and their
+    trips are added to ``K3_COUNTERS``."""
+    from se_snmf_nat_tpu_torch.runtime.profiling import count, device_counters
     if v.device.type == "cpu":
-        return mu_h_solve_columns_ref(v, w, h0, max_iter, conv_eps, sparsity,
-                                      flr)
+        h, trips = mu_h_solve_columns_ref(v, w, h0, max_iter, conv_eps,
+                                          sparsity, flr)
+        count(K3_COUNTERS[0], trips.numel())
+        count(K3_COUNTERS[1], int(trips.sum()))
+        return h, trips
     if v.device.type != "cuda":
         raise ValueError(f"unsupported device {v.device}")
     from se_snmf_nat_tpu_torch.kernels.build import load
@@ -496,11 +504,12 @@ def mu_h_solve_columns(v: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
     # these untouched; the library alone decides the path)
     wn, dph, w_n, w_t = (torch.empty((k,), dtype=torch.float32, device=dev)
                          for k in (r, r, f * r, r * f))
+    counts = device_counters(K3_COUNTERS, dev)
     lib = load().lib
     rc = lib.mu_h_solve_columns(
         v.data_ptr(), *v.stride(), w.data_ptr(), h0.data_ptr(), *h0.stride(),
-        h.data_ptr(), *h.stride(), trips.data_ptr(), wn.data_ptr(),
-        dph.data_ptr(), w_n.data_ptr(), w_t.data_ptr(), f, r, n,
+        h.data_ptr(), *h.stride(), trips.data_ptr(), counts.data_ptr(),
+        wn.data_ptr(), dph.data_ptr(), w_n.data_ptr(), w_t.data_ptr(), f, r, n,
         int(max_iter), float(conv_eps), float(sparsity), float(flr),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "mu_h_solve_columns", _TILE)

@@ -81,6 +81,15 @@ def trace(log_dir: str):
 # also after the profiler has stopped, until the next session starts.
 # Spans and kernel intervals share ``time.perf_counter`` once the kernels
 # are moved onto it by synchronisation markers.
+#
+# The counters the program keeps, by name: ``batch.frames_computed``,
+# ``batch.frames_true``, ``batch.lanes``, ``batch.lanes_int16``
+# (``SnmfEnhancer.enhance_batch``, host); ``k2.lane_trips``,
+# ``k2.active_lanes`` (K2's work tally) and ``k3.columns``,
+# ``k3.column_trips`` (K3's: the columns solved and their trips), added by
+# the kernels on the card and by the plain paths on the host
+# (``kernels.mu.K2_COUNTERS``, ``K3_COUNTERS``); ``runner.files``
+# (``BatchRunner``, host: the files read).
 
 SPAN_CAP = 1 << 20          # spans a session keeps; the rest are counted
 
@@ -250,6 +259,18 @@ def stage(name: str) -> None:
     t = time.perf_counter()
     cur.end(t)
     RECORDER.open.stage = _Span(name).begin(t)
+
+
+def record(name: str, start: float, end: float) -> None:
+    """A span timed on another thread, recorded from this one: torch keeps
+    the profiler's state a thread's own, so a thread it does not follow
+    reads it as off and must not open spans of its own."""
+    if _profiler_on():
+        if not RECORDER.live:
+            RECORDER.start_session()
+        RECORDER.add(name, start, end)
+    else:
+        RECORDER.live = False
 
 
 def count(name: str, n: int) -> None:

@@ -17,12 +17,22 @@ files go through the port's ``io/native`` (the C++ library when g++ can
 build it, the byte-identical Python paths otherwise); the B_D_u file is the
 npz of ``runtime/checkpoint``, which both packages read.  Each plan times
 its stages (``io_read``, ``enhance``, ``io_write``) in the report's
-``StageTimer``.
+``StageTimer`` and adds the files it reads to the host counter
+``runner.files`` (``runtime.profiling``).
+
+The batch plan keeps the enhancer fed: while it runs a chunk, one thread
+reads the next chunk and ``WRITERS`` threads write the last one's
+outputs.  It reads a mono 16-bit PCM file with one open and one read into
+a byte buffer the runner keeps (three, used in turn by the chunks), and
+hands the enhancer int16 views of it, which ``enhance_batch`` sends up as
+they are; any other file goes through ``io/native`` as before.
 """
 
 from __future__ import annotations
 
+import struct
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -31,7 +41,52 @@ import numpy as np
 from se_snmf_nat_tpu_torch.io.native import read_wav_int16, write_wav_int16
 from se_snmf_nat_tpu_torch.runtime.checkpoint import (
     load_adapted_dictionary, save_adapted_dictionary)
-from se_snmf_nat_tpu_torch.runtime.profiling import StageTimer
+from se_snmf_nat_tpu_torch.runtime.profiling import (StageTimer, count,
+                                                     record)
+
+FILES = "runner.files"      # the host counter of the files read
+WRITERS = 2                 # the batch plan's threads writing outputs
+
+
+def read_wav_pcm16(path: Path, buf: np.ndarray):
+    """A mono 16-bit PCM wav's samples as an int16 view of ``buf`` (a uint8
+    array at least the file's size), and its rate, with one open and one
+    read; the header is walked as ``native/snmfio.cpp``'s ``read_header``
+    walks it.  Any other file (more channels, another format, a header or
+    data the read did not hold) gives ``io/native``'s ``read_wav_int16``:
+    its float64 samples, or its error."""
+    with open(path, "rb", buffering=0) as fh:
+        got = fh.readinto(buf)
+    b = buf[:got].data
+    if got >= 12 and b[:4] == b"RIFF" and b[8:12] == b"WAVE":
+        pos, fmt = 12, None
+        while pos + 8 <= got:
+            cid, sz = bytes(b[pos: pos + 4]), struct.unpack_from(
+                "<I", b, pos + 4)[0]
+            pos += 8
+            if cid == b"fmt ":
+                if sz < 16 or pos + 16 > got:
+                    break
+                code, ch, fs = struct.unpack_from("<HHI", b, pos)
+                fmt = (code, ch, fs, struct.unpack_from("<H", b, pos + 14)[0])
+                pos += sz
+            elif cid == b"data":
+                if fmt is None or fmt[:2] != (1, 1) or fmt[3] != 16:
+                    break
+                n = sz // 2
+                if pos + 2 * n > got:
+                    break
+                return buf[pos: pos + 2 * n].view(np.int16), fmt[2]
+            else:
+                pos += sz + (sz & 1)
+    return read_wav_int16(path)
+
+
+def _timed(timer: StageTimer, name: str, start: float, end: float) -> None:
+    """A stage of ``timer`` timed on another thread, added (and its span
+    recorded) on this one."""
+    timer.stages[name] = timer.stages.get(name, 0.0) + end - start
+    record(f"runner.{name}", start, end)
 
 
 @dataclass
@@ -66,6 +121,7 @@ class BatchRunner:
         # the chunking changes; file writes keep their names, and in
         # float64 every per-file output is the unsorted run's.
         self.length_sort = bool(length_sort)
+        self._bufs = [None] * 3         # the batch plan's read buffers
 
     def _out_path(self, f: Path, out_dir: Path) -> Path:
         return out_dir / f"{f.stem}{self.out_suffix}.wav"
@@ -102,6 +158,7 @@ class BatchRunner:
                     x, fs = read_wav_int16(f)
                     chans.append(x)
                     rates.append(fs)
+                count(FILES, len(group))
             if len(set(rates)) > 1:
                 raise ValueError(
                     "channel group with differing sample rates: "
@@ -140,7 +197,7 @@ class BatchRunner:
         report = RunReport()
         todo = []
         for f in files:
-            if self._out_path(f, db_out).exists() and not self.force_rewrite:
+            if not self.force_rewrite and self._out_path(f, db_out).exists():
                 report.skipped.append(f.name)      # run_ntf_sep_RT.m:35-40
             else:
                 todo.append(f)
@@ -156,28 +213,72 @@ class BatchRunner:
         batchable = not self.carry_state or not hasattr(init0, "b_d_head")
         if batch_size > 1 and batchable \
                 and hasattr(self.enhancer, "enhance_batch"):
+            sizes = {f: f.stat().st_size for f in todo}
             if self.length_sort:
-                todo = sorted(todo, key=lambda p: p.stat().st_size)
-            for i in range(0, len(todo), batch_size):
-                chunk = todo[i: i + batch_size]
-                xs, rates = [], []
-                with report.timer.stage("io_read"):
-                    for f in chunk:
-                        x, fs = read_wav_int16(f)
-                        xs.append(x)
-                        rates.append(fs)   # per-file: mixed-rate dirs must
-                        #                    not inherit a chunk-mate's rate
-                        report.seconds_audio += len(x) / fs
-                        report.timer.add_audio(len(x) / fs)
-                with report.timer.stage("enhance"):
-                    outs = self.enhancer.enhance_batch(xs)
-                with report.timer.stage("io_write"):
-                    for f, y, fs in zip(chunk, outs, rates):
-                        write_wav_int16(self._out_path(f, db_out), y, fs)
-                for f in chunk:
+                todo = sorted(todo, key=sizes.__getitem__)
+            chunks = [todo[i: i + batch_size]
+                      for i in range(0, len(todo), batch_size)]
+
+            def read(c):
+                """Chunk c's samples and rates (per file: a mixed-rate
+                directory must not give a file a chunk-mate's rate), read
+                into buffer c % 3, whose chunk c - 3 was enhanced and its
+                outputs written before this read was queued."""
+                t = time.perf_counter()
+                need = sum(sizes[f] + 1 for f in chunks[c])
+                buf = self._bufs[c % 3]
+                if buf is None or buf.size < need:
+                    buf = self._bufs[c % 3] = np.empty(need + need // 4,
+                                                       np.uint8)
+                xs, rates, at = [], [], 0
+                for f in chunks[c]:
+                    x, fs = read_wav_pcm16(f, buf[at: at + sizes[f] + 1])
+                    at += sizes[f] + 1 + (sizes[f] + 1) % 2
+                    xs.append(x)
+                    rates.append(fs)
+                return xs, rates, t, time.perf_counter()
+
+            def write(jobs):
+                t = time.perf_counter()
+                for f, y, fs in jobs:
+                    write_wav_int16(self._out_path(f, db_out), y, fs)
+                return t, time.perf_counter()
+
+            def written(c, futs):
+                """Chunk c's writes done: their span, from the first start
+                to the last end, and its files processed."""
+                times = [fut.result() for fut in futs]
+                _timed(report.timer, "io_write", min(a for a, _ in times),
+                       max(b for _, b in times))
+                for f in chunks[c]:
                     report.processed.append(f.name)
                     if self.verbose:
                         print(f"[batch] {f.name}")
+
+            # one thread reads chunk c + 1, and WRITERS threads write chunk
+            # c - 1's outputs, while the enhancer runs chunk c
+            with ThreadPoolExecutor(1, "runner-read") as reader, \
+                    ThreadPoolExecutor(WRITERS, "runner-write") as writer:
+                reading = reader.submit(read, 0) if chunks else None
+                writing = None
+                for c in range(len(chunks)):
+                    xs, rates, t0, t1 = reading.result()
+                    _timed(report.timer, "io_read", t0, t1)
+                    count(FILES, len(xs))
+                    for x, fs in zip(xs, rates):
+                        report.seconds_audio += len(x) / fs
+                        report.timer.add_audio(len(x) / fs)
+                    if c + 1 < len(chunks):
+                        reading = reader.submit(read, c + 1)
+                    with report.timer.stage("enhance"):
+                        outs = self.enhancer.enhance_batch(xs)
+                    if writing is not None:
+                        written(c - 1, writing)
+                    jobs = list(zip(chunks[c], outs, rates))
+                    writing = [writer.submit(write, jobs[k::WRITERS])
+                               for k in range(min(WRITERS, len(jobs)))]
+                if writing is not None:
+                    written(len(chunks) - 1, writing)
         else:
             # Cross-file carry mirrors the reference's B_D_u exactly: only
             # the adapted noise-dictionary head survives a file boundary;
@@ -195,6 +296,7 @@ class BatchRunner:
             for f in todo:
                 with report.timer.stage("io_read"):
                     x, fs = read_wav_int16(f)
+                    count(FILES, 1)
                 report.seconds_audio += len(x) / fs
                 report.timer.add_audio(len(x) / fs)
                 with report.timer.stage("enhance"):

@@ -310,8 +310,8 @@ def time_clocks(which: str, dev, card):
         def call():
             return fn(v.data_ptr(), *v.stride(), w.data_ptr(), h0.data_ptr(),
                       *h0.stride(), h.data_ptr(), *h.stride(),
-                      trips.data_ptr(), 0, 0, 0, 0, 513, 200, n, 100, 1e-3,
-                      5.0, 1e-9, stream)
+                      trips.data_ptr(), None, 0, 0, 0, 0, 513, 200, n, 100,
+                      1e-3, 5.0, 1e-9, stream)
         what = "K3 F=513 R=200 N=24576 random spectra, cap 100 eps 1e-3"
     fn.restype = ctypes.c_int
     if call():
