@@ -64,8 +64,9 @@
 //
 // The streaming path (mu_tile.cuh) serves the shapes whose slice of W does
 // not fit in a block's 227 KB (the exemplar width R=1000: 65 x 1004 f32 =
-// 261 KB): W normalised once into both layouts and streamed from L2 by one
-// block per 16-column tile.  The C entry chooses by shape;
+// 261 KB): W normalised once into both layouts and streamed from L2
+// through a ring of bulk-copied chunks in each 16-column tile's shared
+// memory, into register-blocked FFMA tiles.  The C entry chooses by shape;
 // mu_h_solve_columns_shape reports the choice.
 //
 // Shared memory per block of the resident path (floats; G slots; RP = R
@@ -587,10 +588,12 @@ struct ResLaunch {
 struct Plan {
   int resident_path;   // 1: W resident in a persistent cluster; 0: streaming
   int slots, bytes, clusters, resident, threads;
+  Ring ring;           // the streaming path's ring of W chunks
 };
 
 // Returns 0, -1 when neither path fits in shared memory, or a CUDA error.
 int plan(int F, int R, int N, Plan& p) {
+  p.ring = Ring{0, 0, 0, 0, 0, 0, 0, 0};
   int g = MAX_SLOTS;
   while (g >= 4 && res_smem_bytes(F, R, g) > MAX_SMEM) g -= 4;
   if (g >= 4 && F >= C) {
@@ -625,11 +628,12 @@ int plan(int F, int R, int N, Plan& p) {
   }
   p.resident_path = 0;
   p.slots = TN;
-  p.threads = stream_threads(F, R);
-  p.bytes = (int)tile_smem_bytes(F, R, p.threads);
+  p.threads = BLOCK_THREADS;
   p.clusters = (N + TN - 1) / TN;
   p.resident = 0;
-  return (size_t)p.bytes > MAX_SMEM ? -1 : 0;
+  if (!stream_ring(F, R, p.ring)) return -1;
+  p.bytes = (int)tile_smem_bytes(F, R, p.ring);
+  return 0;
 }
 
 }  // namespace
@@ -637,26 +641,32 @@ int plan(int F, int R, int N, Plan& p) {
 // Which path mu_h_solve_columns takes for (F, R, N): out = {1 resident-W
 // path / 0 streaming path, column slots of a cluster (columns of a tile),
 // shared-memory bytes per block, threads per block, clusters (blocks)
-// launched, clusters the card holds at once (0 on the streaming path)}.
-// Returns as plan().
+// launched, clusters the card holds at once (0 on the streaming path), and
+// the streaming path's ring: stages, rows of W a numerator chunk, rows of
+// W' an L chunk, the rounds of rows of the numerator and of the L pass
+// (each a sweep of its layout; 0 on the resident path)}.  Returns as
+// plan().
 extern "C" int mu_h_solve_columns_shape(int F, int R, int N, int* out) {
   Plan p;
   const int rc = plan(F, R, N > 0 ? N : 1, p);
   if (rc != 0) return rc;
-  const int vals[6] = {p.resident_path, p.slots, p.bytes, p.threads,
-                       p.clusters, p.resident};
-  for (int i = 0; i < 6; ++i) out[i] = vals[i];
+  const int vals[11] = {p.resident_path,    p.slots,    p.bytes,
+                        p.threads,          p.clusters, p.resident,
+                        p.ring.stages,      p.ring.kf,  p.ring.kr,
+                        p.ring.num_rounds,  p.ring.lam_rounds};
+  for (int i = 0; i < 11; ++i) out[i] = vals[i];
   return 0;
 }
 
 // C entry.  v: (F, N) with element strides (v_sf, v_sn); w (F, R)
 // contiguous; h0: (R, N) with strides (h0_sr, h0_sn), h0_sn = 0 for one
 // broadcast column; outputs h (R, N) with strides (h_sr, h_sn) and the
-// per-column trip counts (N,); `counts` (2,) uint64, or null, is added
-// to: the columns solved and their trips; scratch wn, dph (R,) and w_n, w_t
-// (F*R), touched by the streaming path only.  Launches on `stream`, does not
-// synchronise, returns the launch's error, or -1 when the shape fits
-// neither path's shared memory.
+// per-column trip counts (N,); `counts` (4,) uint64, or null, is added
+// to: the columns solved and their trips, and (streaming path) the ring's
+// chunks taken and those that had not landed; scratch wn, dph (R,) and
+// w_n, w_t (pad4(F) * pad4(R) each), touched by the streaming path only.
+// Launches on `stream`, does not synchronise, returns the launch's error,
+// or -1 when the shape fits neither path's shared memory.
 extern "C" int mu_h_solve_columns(const float* v, long long v_sf,
                                   long long v_sn, const float* w,
                                   const float* h0, long long h0_sr,
@@ -686,6 +696,5 @@ extern "C" int mu_h_solve_columns(const float* v, long long v_sf,
   }
   return stream_solve(v, v_sf, v_sn, w, h0, h0_sr, h0_sn, h, h_sr, h_sn,
                       trips, counts, wn, dph, w_n, w_t, F, R, N, max_iter,
-                      conv_eps, sparsity, flr, p.threads, (size_t)p.bytes,
-                      s);
+                      conv_eps, sparsity, flr, (size_t)p.bytes, p.ring, s);
 }

@@ -30,7 +30,8 @@
   FMA.  Persistent clusters of 8 blocks keep their slice of W in shared
   memory for the whole call and walk over the columns in slots that are
   refilled as columns stop; where W's slice does not fit (the exemplar
-  width) one block per 16-column tile streams W from L2
+  width) one block per 16-column tile streams W from L2 through a ring of
+  bulk-copied chunks in shared memory into register-blocked FFMA tiles
   (``csrc/mu_tile.cuh``).
 
 Each wrapper takes its plain version (``*_ref``) only for tensors on the CPU.
@@ -42,7 +43,10 @@ counters ``K2_COUNTERS`` (``runtime.profiling``): the lane-trips its active
 lanes ran and the number of active lanes, added by the kernel on the card
 (every replay of a graph adds too) and on the host by the plain path.  K3
 tallies its own in ``K3_COUNTERS``: the columns it solved and their trips,
-added by either of its paths on the card and on the host by the plain path.
+added by either of its paths on the card and on the host by the plain path,
+and, on the streaming path alone, the W chunks its blocks took from their
+rings and those that warp 0 found not yet landed (the plain path has no
+ring and adds nothing to them).
 """
 
 from __future__ import annotations
@@ -55,7 +59,8 @@ from se_snmf_nat_tpu_torch.nmf.solver import (
     SnmfParams, snmf_h_solve_columns, snmf_solve)
 
 K2_COUNTERS = ("k2.lane_trips", "k2.active_lanes")
-K3_COUNTERS = ("k3.columns", "k3.column_trips")
+K3_COUNTERS = ("k3.columns", "k3.column_trips", "k3.ring_chunks",
+               "k3.ring_waits")
 
 
 _TALLY: dict | None = None    # the launches a graph being captured records
@@ -475,7 +480,8 @@ def mu_h_solve_columns(v: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
     int32): each column freezes at its own relative-cost stop;
     ``conv_eps <= 0`` runs ``max_iter`` trips.  On the card h is the
     transposed view of a frame-major (N, R) tensor.  The columns and their
-    trips are added to ``K3_COUNTERS``."""
+    trips are added to ``K3_COUNTERS`` (the streaming path adds its ring's
+    chunks and waits too)."""
     from se_snmf_nat_tpu_torch.runtime.profiling import count, device_counters
     if v.device.type == "cpu":
         h, trips = mu_h_solve_columns_ref(v, w, h0, max_iter, conv_eps,
@@ -500,10 +506,12 @@ def mu_h_solve_columns(v: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
     h = torch.empty((n, r), dtype=torch.float32, device=dev).t()
     trips = torch.empty((n,), dtype=torch.int32, device=dev)
     # the streaming path's scratch: W's norms, dph and W normalised in both
-    # layouts (the resident path keeps all of it in shared memory and leaves
-    # these untouched; the library alone decides the path)
+    # layouts, rows padded to 4 floats (the resident path keeps all of it in
+    # shared memory and leaves these untouched; the library alone decides
+    # the path)
+    padded = (f + 3) // 4 * 4 * ((r + 3) // 4 * 4)
     wn, dph, w_n, w_t = (torch.empty((k,), dtype=torch.float32, device=dev)
-                         for k in (r, r, f * r, r * f))
+                         for k in (r, r, padded, padded))
     counts = device_counters(K3_COUNTERS, dev)
     lib = load().lib
     rc = lib.mu_h_solve_columns(
@@ -527,16 +535,21 @@ def mu_h_solve_columns_shape(f: int, r: int, n: int) -> dict:
     stays resident in a persistent cluster's shared memory (else the
     L2-streaming path of 16-column tiles), the column slots of a cluster (or
     columns of a tile), shared-memory bytes and threads per block, the
-    clusters (or blocks) launched and the clusters the card holds at once.
-    Needs the built library and the card."""
+    clusters (or blocks) launched, the clusters the card holds at once, and
+    the streaming path's ring of W chunks: its stages, the rows of W a
+    numerator chunk holds, the rows of W' an L chunk holds, and the rounds
+    of rows for which the numerator and the L pass each sweep their layout
+    of W once (0 on the resident path).  Needs the built library and the
+    card."""
     import ctypes
 
     from se_snmf_nat_tpu_torch.kernels.build import load
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 11)()
     rc = load().lib.mu_h_solve_columns_shape(f, r, n, ctypes.addressof(out))
     _raise_on(rc, "mu_h_solve_columns", _TILE)
     return dict(zip(("resident", "slots", "smem_bytes", "threads", "clusters",
-                     "resident_clusters"), out))
+                     "resident_clusters", "ring_stages", "chunk_rows_f",
+                     "chunk_rows_r", "num_rounds", "lam_rounds"), out))
 
 
 def mu_w_solve_lanes(v: torch.Tensor, w0: torch.Tensor, h: torch.Tensor,

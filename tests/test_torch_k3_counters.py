@@ -4,7 +4,9 @@ columns it solved and the sum of the ``trips`` it returns to
 ``k3.columns`` and ``k3.column_trips``; the fast plan's call counts every
 column of its one solve (the lanes by the bucket's frames); the directory
 runner counts the files it reads, on the batch and the sequential path,
-and none that it skips; a session counts only its own work."""
+and none that it skips; a session counts only its own work.  The plain path
+has no ring of W chunks and adds nothing to ``k3.ring_chunks`` or
+``k3.ring_waits``, which only the card's streaming path counts."""
 
 import contextlib
 from dataclasses import replace
@@ -61,6 +63,18 @@ def test_k3_counters_on_the_plain_path(cap, eps):
         assert bool((trips == cap).all())
     assert c["k3.columns"] == 50 + 20
     assert c["k3.column_trips"] == int(trips.sum()) + int(trips2.sum())
+    assert "k3.ring_chunks" not in c and "k3.ring_waits" not in c
+
+
+def test_k3_counter_names_and_the_ring_counters_absent_on_the_cpu():
+    assert mu.K3_COUNTERS == ("k3.columns", "k3.column_trips",
+                              "k3.ring_chunks", "k3.ring_waits")
+    v, w, h0 = _columns(40, seed=9)
+    with _profiled():
+        mu.mu_h_solve_columns(v, w, h0, 20, 1e-3, 5.0, 1e-9)
+    c = profiling.counters()
+    assert c["k3.columns"] == 40
+    assert not any(k.startswith("k3.ring") for k in c)
 
 
 @pytest.mark.parametrize("lens,micro_batch", [((9000, 5000, 12000), None),
@@ -83,6 +97,7 @@ def test_the_fast_plan_counts_every_column_of_a_call(lens, micro_batch):
     chunks = -(-len(lens) // mb)
     assert c["k3.columns"] == chunks * mb * bucket
     assert c["k3.columns"] <= c["k3.column_trips"] <= 8 * c["k3.columns"]
+    assert "k3.ring_chunks" not in c and "k3.ring_waits" not in c
 
 
 @pytest.fixture(scope="module")

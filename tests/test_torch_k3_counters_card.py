@@ -9,9 +9,14 @@ Both of ``mu_h_solve_columns``' paths (W resident at R=200, streamed from
 L2 at the exemplar width R=1000) add the columns they solved and their
 trips to the counters ``k3.columns`` and ``k3.column_trips``
 (``runtime.profiling``): they equal the trips the launches return, read
-after the launches under an active profiler.  A call adds no launch and no
-synchronisation for them; the fast plan at the exemplar width runs one K3
-launch a call, on the streaming path, and counts every column of it.
+after the launches under an active profiler.  The streaming path also adds
+the W chunks its blocks took from their rings, ``k3.ring_chunks``: the
+chunks its schedule implies for each tile's trips (the first L pass, then
+a numerator and an L pass a trip but for the cap's L), and those not yet
+landed at warp 0's first probe, ``k3.ring_waits``; the resident path adds
+neither.  A call adds no launch and no synchronisation for them; the fast
+plan at the exemplar width runs one K3 launch a call, on the streaming
+path, and counts every column of it.
 """
 
 import contextlib
@@ -58,13 +63,27 @@ def _args(dev, r, n, seed=3):
     return v, w, h0, 50, 1e-3, 5.0, 1e-9
 
 
+def ring_chunks(shape: dict, f: int, r: int, trips, cap: int) -> int:
+    """The chunks the streaming path's consumers take for a launch: a tile
+    of 16 columns runs as many trips as its slowest column; it takes the
+    first L pass, then a numerator pass and an L pass a trip, but for the L
+    of a trip at the cap; a pass sweeps its layout's chunks once a round of
+    rows."""
+    num = shape["num_rounds"] * -(-f // shape["chunk_rows_f"])
+    lam = shape["lam_rounds"] * -(-r // shape["chunk_rows_r"])
+    t = trips.cpu().numpy()
+    tiles = [int(t[i:i + 16].max()) for i in range(0, len(t), 16)]
+    return sum(lam + k * num + (k - (k == cap)) * lam for k in tiles if cap)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("r,resident", [(200, 1), (1000, 0)])
 def test_k3_counters_equal_the_returned_trips(r, resident):
     dev = _card()
     n = 2000
     args = _args(dev, r, n)
-    assert mu.mu_h_solve_columns_shape(F, r, n)["resident"] == resident
+    shape = mu.mu_h_solve_columns_shape(F, r, n)
+    assert shape["resident"] == resident
     with _session():
         h, trips = mu.mu_h_solve_columns(*args)
         h2, trips2 = mu.mu_h_solve_columns(*args)
@@ -73,6 +92,33 @@ def test_k3_counters_equal_the_returned_trips(r, resident):
     assert int(trips.min()) > 0 and int(trips.max()) <= 50
     assert c["k3.columns"] == 2 * n
     assert c["k3.column_trips"] == 2 * int(trips.sum())
+    want = 0 if resident else 2 * ring_chunks(shape, F, r, trips, 50)
+    assert c["k3.ring_chunks"] == want
+    assert 0 <= c["k3.ring_waits"] <= want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,r,n,cap,eps", [(513, 1000, 1003, 22, 0.0),
+                                           (513, 1000, 1003, 1, 1e-3),
+                                           (400, 1200, 600, 30, 1e-3),
+                                           (1100, 600, 100, 12, 1e-3)])
+def test_k3_ring_chunks_follow_the_schedule(f, r, n, cap, eps):
+    """Fixed trips, the cap of one trip, a shape whose numerator pass takes
+    two rounds of rows (R=1200: 1,024 rows a round) and one whose L pass
+    takes three (F=1100: 512 rows a round, more than two left over)."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
+    args = (t(rng.gamma(0.6, 2.0, (n, f))).t(), t(rng.random((f, r)) + 1e-3),
+            t(rng.random((r, 1))), cap, eps, 5.0, 1e-9)
+    shape = mu.mu_h_solve_columns_shape(f, r, n)
+    assert shape["resident"] == 0 and shape["ring_stages"] >= 2
+    assert shape["num_rounds"] == -(-r // 1024)
+    with _session():
+        _, trips = mu.mu_h_solve_columns(*args)
+    c = profiling.counters()
+    assert c["k3.ring_chunks"] == ring_chunks(shape, f, r, trips, cap)
+    assert 0 <= c["k3.ring_waits"] <= c["k3.ring_chunks"]
 
 
 @pytest.mark.gpu
@@ -114,5 +160,6 @@ def test_the_exemplar_fast_plan_at_its_widths_counts_one_streaming_launch():
     c = profiling.counters()
     assert mu.mu_h_solve_columns.launches - n0 == 1
     assert c["k3.columns"] == n
+    assert c["k3.ring_chunks"] > 0
     assert 1 <= c["k3.column_trips"] / n <= 50
     assert len(outs) == 64 and all(y.dtype == np.int16 for y in outs)

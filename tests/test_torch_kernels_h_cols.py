@@ -132,6 +132,22 @@ def _hold_cols_to_plain(args, h, trips):
     assert err_k <= max(RTOL, 2.0 * err_p), (err_k, err_p)
 
 
+def _same_bits_among_other_columns(vv, args, h, trips):
+    """A column solved among fewer columns, or with the columns permuted,
+    gives the bits and trips it has among all: its result depends on
+    neither its tile (or slot) nor its neighbours."""
+    n = vv.shape[1]
+    k = n // 3
+    hk, tk = mu.mu_h_solve_columns(vv[:, :k], *args[1:])
+    assert torch.equal(h[:, :k], hk)
+    assert torch.equal(trips[:k], tk)
+    perm = torch.as_tensor(np.random.default_rng(n).permutation(n),
+                           device=vv.device)
+    hp, tp = mu.mu_h_solve_columns(vv[:, perm], *args[1:])
+    assert torch.equal(h[:, perm], hp)
+    assert torch.equal(trips[perm], tp)
+
+
 @pytest.mark.gpu
 def test_cuda_h_cols_kernel_matches_plain_version():
     """K3 against its plain version on the card: a ragged last tile, early
@@ -139,7 +155,8 @@ def test_cuda_h_cols_kernel_matches_plain_version():
     strided input of the fast plan; on the resident-W path with more columns
     than the clusters hold at once (slots are refilled as columns stop) and
     on the streaming path (R=1000).  Two launches give the same bits, and a
-    column solved among fewer columns gives the bits it has among all."""
+    column solved among fewer columns, or with the columns permuted, gives
+    the bits it has among all, on both paths."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels are CUDA C++ for sm_90a)")
     from se_snmf_nat_tpu_torch.device import require_cuda
@@ -161,13 +178,43 @@ def test_cuda_h_cols_kernel_matches_plain_version():
                 _hold_cols_to_plain(args, h, trips)
                 h2, trips2 = mu.mu_h_solve_columns(*args)
                 assert torch.equal(h, h2) and torch.equal(trips, trips2)
-                if resident:
-                    k = n // 3
-                    hk, tk = mu.mu_h_solve_columns(vv[:, :k], *args[1:])
-                    assert torch.equal(h[:, :k], hk)
-                    assert torch.equal(trips[:k], tk)
+                _same_bits_among_other_columns(vv, args, h, trips)
         # a start matrix with a column of its own for every column of V
         h0n = t(np.random.default_rng(7).random((r, n)).astype(np.float32))
         args = (t(v), t(w), h0n, 30, 1e-3, 5.0, 1e-9)
         h, trips = mu.mu_h_solve_columns(*args)
         _hold_cols_to_plain(args, h, trips)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,r,n", [(513, 1000, 40), (513, 1000, 24576),
+                                   (400, 1200, 1003)])
+def test_cuda_h_cols_streaming_path_matches_plain_version(f, r, n):
+    """The streaming path (W's slice does not fit a resident cluster) at
+    the exemplar width, at the fast plan's 64 lanes of 384 frames, and at a
+    ragged shape (F and R not multiples of the chunks, R=1200 taking two
+    rounds of rows in the numerator pass, a last tile of 11 columns): fixed
+    trips, early stops and one trip; the frame-major strided input; the
+    broadcast and a full start matrix; held to the plain version; two
+    launches the same bits; a column's bits and trips independent of the
+    columns solved beside it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels are CUDA C++ for sm_90a)")
+    from se_snmf_nat_tpu_torch.device import require_cuda
+    dev = require_cuda()
+    t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
+    assert mu.mu_h_solve_columns_shape(f, r, n)["resident"] == 0
+    v, w, h0 = _inputs(8, f=f, r=r, n=n)
+    v_fm = t(np.ascontiguousarray(v.T)).T
+    h0n = t(np.random.default_rng(9).random((r, n)).astype(np.float32))
+    for h0_t in (t(h0), h0n):
+        for max_iter, eps in ((25, 0.0), (50, 1e-3), (1, 1e-3)):
+            args = (v_fm, t(w), h0_t, max_iter, eps, 5.0, 1e-9)
+            h, trips = mu.mu_h_solve_columns(*args)
+            _hold_cols_to_plain(args, h, trips)
+            if eps == 0.0 or max_iter == 1:
+                assert bool((trips == max_iter).all())
+            h2, trips2 = mu.mu_h_solve_columns(*args)
+            assert torch.equal(h, h2) and torch.equal(trips, trips2)
+            if h0_t.shape[1] == 1 and n <= 2000:
+                _same_bits_among_other_columns(v_fm, args, h, trips)
