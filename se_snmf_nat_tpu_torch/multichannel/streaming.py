@@ -51,6 +51,7 @@ from se_snmf_nat_tpu_torch.multichannel.pmwf import (
     PmwfParams, analysis, apply_filters, cdiv_real, cmul_conj,
     collapse_index, complex_dtype, emit_samples, frame_cov, frames_of,
     ordered_sum, pmwf_filters, synthesis)
+from se_snmf_nat_tpu_torch.stream.hops import HopFramer, overlap_add_hops
 from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_int16_write
 
 
@@ -298,14 +299,15 @@ class PmwfStreamingSession:
 
     push(samples (C, n)) consumes int16-scale multichannel audio in any
     chunking and returns finalized (C, m) enhanced samples, bit-identical
-    to the one-shot per-frame plan on the same stream: each block runs the
-    same step over its valid frames, and a hop is added up from its frames
-    in the compute dtype in the one-shot overlap-add's order.  (The
-    reference's session adds in float64 on the host, so its float32 output
-    can differ from its one-shot run by a rounding.)  Latency = the engine
-    delay + the beamformer's L-frame lookahead (the emitted frame is the
-    window center).  The state lies on the card unless ``device`` names
-    another.
+    to the one-shot per-frame plan on the same stream: the channels are
+    the lanes of a ``stream.hops.HopFramer``, each block runs the same step
+    over its frames, and ``stream.hops.overlap_add_hops`` adds a hop up
+    from its frames on the host in the compute dtype, in the one-shot
+    overlap-add's order.  (The reference's session adds in float64 on the
+    host, so its float32 output can differ from its one-shot run by a
+    rounding.)  Latency = the engine delay + the beamformer's L-frame
+    lookahead (the emitted frame is the window center).  The state lies on
+    the card unless ``device`` names another.
     """
 
     def __init__(self, cfg: PipelineConfig | None = None,
@@ -314,8 +316,6 @@ class PmwfStreamingSession:
         self._run = PmwfStreamingRun(cfg, params, dtype, device)
         self.cfg, self.params = self._run.cfg, self._run.params
         self.dtype, self.device = dtype, self._run.device
-        self._s = self.cfg.signal
-        self._delay = self.cfg.delay
         self.n_ch = n_ch
         self._block = max(int(block_frames), 1)
         self.reset()
@@ -325,80 +325,41 @@ class PmwfStreamingSession:
         return self._block
 
     def reset(self, state: PmwfStreamState | None = None) -> None:
-        s = self._s
-        self._queue = np.zeros((self.n_ch, s.framelength))
-        self._hold = np.zeros((self.n_ch, 0))
-        # the frames before the newest, newest first: a hop is final once
-        # the frame it opens has come
+        s = self.cfg.signal
+        self._framer = HopFramer(self.cfg, self.n_ch, self._block)
+        # each channel's last ratio-1 synthesised frames, oldest first
         self._recent = np.zeros(
-            (s.framelength // s.frameshift - 1, self.n_ch, s.framelength),
+            (self.n_ch, s.framelength // s.frameshift - 1, s.framelength),
             np.float64 if self.dtype == torch.float64 else np.float32)
-        self._l = 0
-        self._pending: list[np.ndarray] = []
         self.state = state if state is not None else pmwf_stream_init(
             self.params, self.n_ch, s.n_bins, self._run.cdtype, self.device)
 
-    def _flush_pending(self) -> list[np.ndarray]:
-        if not self._pending:
-            return []
-        s = self._s
-        k = len(self._pending)
-        y = self._run.spectra(np.stack(self._pending))       # (K, C, F)
-        d_seq = torch.empty_like(y)
-        for i in range(k):
-            self.state, d_seq[i] = self._run.step(self.state, y[i])
-        # per-frame synthesis; the overlap-add on the host
-        outs = synthesis(d_seq, self._run.win, s, self.dtype).cpu().numpy()
-        self._pending = []
-        l0 = self._l - k + 1
-        hs = s.frameshift
-        emitted = []
-        for i in range(k):
-            # chunk c of the frame c hops back, in c order (overlap_add's)
-            hop = outs[i][:, :hs]
-            for c, prev in enumerate(self._recent, start=1):
-                hop = hop + prev[:, c * hs: (c + 1) * hs]
-            self._recent = np.concatenate([outs[i][None],
-                                           self._recent[:-1]])
-            if l0 + i > self._delay:
-                emitted.append(hop.astype(np.float64))
-        return emitted
+    def _run_blocks(self, blocks, quantize: bool) -> np.ndarray:
+        """Run the framed blocks in order; their finalized samples."""
+        outs = []
+        for block in blocks:
+            y = self._run.spectra(block.frames)                # (C, K, F)
+            d_seq = torch.empty_like(y)
+            for i in range(block.k):
+                self.state, d_seq[:, i] = self._run.step(self.state, y[:, i])
+            frames = synthesis(d_seq, self._run.win, self.cfg.signal,
+                               self.dtype).cpu().numpy()
+            hops, self._recent = overlap_add_hops(
+                self._recent, frames, self.cfg.signal.frameshift)
+            outs.append(hops[:, block.emit[0]].reshape(self.n_ch, -1))
+        y = (np.concatenate(outs, axis=1).astype(np.float64) if outs
+             else np.zeros((self.n_ch, 0)))
+        return matlab_int16_write(y) if quantize else y
 
     def push(self, samples: np.ndarray, quantize: bool = True) -> np.ndarray:
         """samples: (C, n) int16-scale; returns (C, m) finalized output."""
-        s = self._s
-        samples = np.atleast_2d(np.asarray(samples, np.float64))
-        buf = np.concatenate([self._hold, samples], axis=1)
-        outs = []
-        while buf.shape[1] >= s.frameshift:
-            hop, buf = buf[:, : s.frameshift], buf[:, s.frameshift:]
-            self._queue = np.concatenate(
-                [self._queue[:, s.frameshift:], hop], axis=1)
-            self._l += 1
-            self._pending.append(self._queue.copy())
-            if len(self._pending) >= self._block:
-                outs.extend(self._flush_pending())
-        self._hold = buf
-        y = (np.concatenate(outs, axis=1) if outs
-             else np.zeros((self.n_ch, 0)))
-        return matlab_int16_write(y) if quantize else y
+        return self._run_blocks(self._framer.push(
+            np.atleast_2d(np.asarray(samples, np.float64))), quantize)
 
     def flush(self, quantize: bool = True) -> np.ndarray:
         """EOF: drain delay+1 zero-queue flush frames plus the partial
         block (same contract as the single-channel session)."""
-        s = self._s
-        self._hold = np.zeros((self.n_ch, 0))
-        outs = []
-        for _ in range(self._delay + 1):
-            self._queue = np.zeros((self.n_ch, s.framelength))
-            self._l += 1
-            self._pending.append(self._queue.copy())
-            if len(self._pending) >= self._block:
-                outs.extend(self._flush_pending())
-        outs.extend(self._flush_pending())
-        y = (np.concatenate(outs, axis=1) if outs
-             else np.zeros((self.n_ch, 0)))
-        return matlab_int16_write(y) if quantize else y
+        return self._run_blocks(self._framer.flush(), quantize)
 
 
 def pmwf_streaming_enhance(x: np.ndarray, cfg: PipelineConfig | None = None,

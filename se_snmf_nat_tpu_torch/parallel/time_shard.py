@@ -90,11 +90,11 @@ def enhance_time_sharded(enhancer, x: np.ndarray, mesh: Mesh, *,
             np.stack([padded[st - h: st - h + width]
                       for st, h in zip(starts[lanes], halo_lens[lanes])]),
             dtype=enh.dtype, device=dev)                  # (d, width, L)
-        mag, phase = enh._analysis(win_frames)
+        mag, phase = enh.analysis(win_frames)
         _, (xm,) = enh.frame_loop(
             enh.engine, mag, batch_state(enh.initial_state(), len(lanes)),
             [width] * len(lanes), l0=1)
-        olas.append(overlap_add(enh._synthesis(xm, phase), s.frameshift))
+        olas.append(overlap_add(enh.synthesis(xm, phase), s.frameshift))
     ola = torch.cat([o.to(olas[0].device) for o in olas])
     if mesh.group is not None:
         import torch.distributed as dist

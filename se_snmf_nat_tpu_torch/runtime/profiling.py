@@ -506,15 +506,15 @@ def _fleet_tick_window(enh, lanes: int, block_frames: int, n_inner: int,
 
     @torch.no_grad()
     def ticks(hops, queue, recent, state, l0):
-        fleet._queue_dev, fleet._recent_dev, fleet.state = \
+        fleet._queue_dev, fleet._recent, fleet.state = \
             queue, recent, state
         for _ in range(n_inner):
             fleet._device_tick(hops, l0)
             l0 = l0 + block_frames
-        return fleet._queue_dev, fleet._recent_dev, fleet.state, l0
+        return fleet._queue_dev, fleet._recent, fleet.state, l0
 
     l0 = torch.ones((lanes,), dtype=torch.int64, device=dev)
-    carry = ticks(make_hops(), fleet._queue_dev, fleet._recent_dev,
+    carry = ticks(make_hops(), fleet._queue_dev, fleet._recent,
                   fleet.state, l0)                          # warm
     sync(dev)
     return ticks, make_hops, carry

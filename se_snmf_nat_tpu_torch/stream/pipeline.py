@@ -40,7 +40,8 @@ from se_snmf_nat_tpu_torch.enhance.state import (
 from se_snmf_nat_tpu_torch.io.wavio import enhanced_quantize
 from se_snmf_nat_tpu_torch.runtime.profiling import count, request, stage
 from se_snmf_nat_tpu_torch.stream.block_adaptive import (
-    make_block_adaptive_run)
+    BlockStep, make_block_adaptive_run, make_block_step, ring_ptr0,
+    rings_to_shift_layout)
 from se_snmf_nat_tpu_torch.stream.fast_pipeline import (
     make_fast_run, supports_fast_plan)
 from se_snmf_nat_tpu_torch.utils.matlab_compat import (
@@ -91,6 +92,7 @@ class SnmfEnhancer(nn.Module):
         self.engine = make_engine(self.cfg, b1_x, b1_d, b2_x, b2_d,
                                   self.device, dtype)
         self._source_engine = None          # built by separate()
+        self._session_steps: dict[int, BlockStep] = {}   # by block_step()
 
         def t(a):
             return torch.as_tensor(a, dtype=dtype, device=self.device)
@@ -149,13 +151,15 @@ class SnmfEnhancer(nn.Module):
         return SnmfEnhancer(self.cfg, *self._bases, device=device,
                             **self._options)
 
-    def _analysis(self, frames: torch.Tensor):
+    def analysis(self, frames: torch.Tensor):
+        """Frames (..., T, L) -> (magnitude, phase) spectra (..., T, F)."""
         s = self.cfg.signal
         return analysis_frames(
             frames, self.win, s.fftlength, s.pow, s.dc_bin, s.nonzerofloor,
             s.preemph, dft_matmul=self.dft_matmul, cs=self.cs)
 
-    def _synthesis(self, xm: torch.Tensor, phase: torch.Tensor):
+    def synthesis(self, xm: torch.Tensor, phase: torch.Tensor):
+        """(magnitude, phase) (..., T, F) -> windowed frames (..., T, L)."""
         s = self.cfg.signal
         return synthesis_frames(
             xm, phase, s.framelength, s.fftlength, self.win, s.pow,
@@ -199,9 +203,9 @@ class SnmfEnhancer(nn.Module):
     def _run_exact(self, frames: torch.Tensor, state: EngineState, n_valid):
         """Analysis, the frame loop, synthesis and overlap-add of
         frames (B, T, L): (y (B, S), state)."""
-        mag, phase = self._analysis(frames)
+        mag, phase = self.analysis(frames)
         state, (xm,) = self.frame_loop(self.engine, mag, state, n_valid)
-        return overlap_add(self._synthesis(xm, phase),
+        return overlap_add(self.synthesis(xm, phase),
                            self.cfg.signal.frameshift), state
 
     def run_frames(self, frames: torch.Tensor, states=None, t_valid=None):
@@ -237,6 +241,42 @@ class SnmfEnhancer(nn.Module):
 
     def initial_state(self):
         return self._state0
+
+    def block_step(self, k_block: int) -> BlockStep:
+        """The block-adaptive step of ``k_block`` frames for this enhancer's
+        push sessions, built once a K: its CUDA graphs (one a lane count)
+        serve every session, whose replays run in turn and copy their
+        outputs out.  It takes ``block_iter_cap`` only (no refit cap, no
+        fixed trips), as the reference's sessions build theirs."""
+        step = self._session_steps.get(k_block)
+        if step is None:
+            step = self._session_steps[k_block] = make_block_step(
+                self.cfg, *self._bases, self.device, self.dtype,
+                k_block=k_block, iter_cap=self.block_iter_cap)
+        return step
+
+    def session_block(self, frames: torch.Tensor, state: EngineState,
+                      ring_ptr, l0, step: BlockStep | None = None):
+        """A push session's block of frames (B, K, L) numbered from ``l0``
+        (as ``frame_loop`` takes it): analysis, then ``step`` on a block of
+        ``step.k_block`` frames, else the exact loop on the rings in shift
+        layout (the pointers restart), then synthesis.  Returns (state,
+        ring pointers, synthesised frames)."""
+        n, k = frames.shape[:2]
+        mag, phase = self.analysis(frames)
+        if step is not None and k == step.k_block:
+            ls = torch.arange(k, device=self.device) + (
+                l0[:, None] if torch.is_tensor(l0) else l0)
+            state, ring_ptr, xm = step(
+                state, ring_ptr, mag, ls,
+                torch.ones((n, k), dtype=torch.bool, device=self.device))
+        else:
+            if step is not None:
+                state = rings_to_shift_layout(state, ring_ptr)
+                ring_ptr = ring_ptr0(n, self.device)
+            state, (xm,) = self.frame_loop(self.engine, mag, state, [k] * n,
+                                           l0)
+        return state, ring_ptr, self.synthesis(xm, phase)
 
     @torch.no_grad()
     def enhance(self, x: np.ndarray, state=None, return_state: bool = False,
@@ -277,14 +317,14 @@ class SnmfEnhancer(nn.Module):
         frames = torch.as_tensor(self._pad_frames(true_frames),
                                  dtype=self.dtype, device=self.device)
         st = batch_state(state if state is not None else self._state0, 1)
-        mag, phase = self._analysis(frames[None])
+        mag, phase = self.analysis(frames[None])
         _, (xm, x_srcs, d_srcs) = self.frame_loop(self._source_engine, mag,
                                                   st, [t])
         start = self.cfg.delay * s.frameshift
         stop = start + (t - self.cfg.delay) * s.frameshift
 
         def emit(m):
-            y = overlap_add(self._synthesis(m, phase), s.frameshift)
+            y = overlap_add(self.synthesis(m, phase), s.frameshift)
             y = host_array(y[0, start:stop])
             return enhanced_quantize(y) if quantize else y
 

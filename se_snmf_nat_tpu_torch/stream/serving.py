@@ -15,18 +15,19 @@ the emission delay while the others carry on.  The engine takes the frame
 numbers as a (B,) tensor (``Engine.step``), so a tick reads no device value
 on the host.
 
-Wire formats.  ``wire="frames"`` uploads (B, K, framelength) frames and
-downloads the synthesised frames; the overlap-add runs on the host.
-``wire="samples"`` uploads the raw hop samples (int16 when they are
-integer-valued), builds the frames from a queue that lives on the device,
-overlap-adds against the last synthesised frames kept on the device, applies
-MATLAB's int16 write there and downloads int16 PCM.  Partial blocks,
-``flush``, a queue zeroed in mid-block and lane resets go through the frames
-path, and the device copies are re-seeded once afterwards.
-``pipeline_ticks`` (samples wire) returns tick n-1 while tick n is in
-flight: on the card the PCM of a tick is copied into pinned host memory
-without blocking and an event marks it; the next push waits on that event
-only.  ``drain`` settles the last tick.
+Wire formats.  The hold, the queue, the clocks and the pending block are a
+``stream.hops.HopFramer``; the overlap-add history stays on the device and
+the output hops come down.  ``wire="frames"`` uploads (B, K, framelength)
+frames.  ``wire="samples"`` uploads a block's hops (int16 when they are
+integer-valued), frames them from a queue kept on the device, applies
+MATLAB's int16 write there and downloads int16 PCM; a block that is not one
+shift chain (a partial block, a queue zeroed in mid-block) goes through the
+frames path, and the next samples tick after it, or after a queue zeroed
+between blocks, uploads the framer's queue.  ``pipeline_ticks`` (samples
+wire) returns tick n-1 while tick n is in flight: on the card the PCM of a
+tick is copied into pinned host memory without blocking and an event marks
+it; the next push waits on that event only.  ``drain`` settles the last
+tick.
 
 Both wires add an output hop's chunks in the order of ``StreamingSession``
 and ``dsp.stft.overlap_add`` (newest frame first), so on one device and
@@ -35,11 +36,11 @@ introduces.
 
 Traced (``runtime.profiling``), a push is tiled by the spans of
 ``StreamingSession``'s stages: ``stream.prep`` (the hold, the queue, the
-hops stacked, the int16 test, the uploads), ``stream.launch``
-(``_device_tick``, or analysis, the frame loop and synthesis),
-``stream.fetch`` (the PCM or frames to the host, or the pipelined tick's
-settle) and ``stream.emit`` (``_emit_pcm``, the overlap-add on the frames
-wire, ``_assemble``, the final stack).
+hops or frames stacked, the int16 test, the uploads), ``stream.launch``
+(``_device_tick``, or analysis, the frame loop or block step, synthesis and
+the overlap-add), ``stream.fetch`` (the PCM or hops to the host, or the
+pipelined tick's settle) and ``stream.emit`` (``_assemble``, the final
+stack).
 """
 
 from __future__ import annotations
@@ -51,26 +52,9 @@ from se_snmf_nat_tpu_torch.device import host_array
 from se_snmf_nat_tpu_torch.enhance.state import EngineState, batch_state
 from se_snmf_nat_tpu_torch.io.wavio import enhanced_quantize
 from se_snmf_nat_tpu_torch.runtime.profiling import request, stage
-from se_snmf_nat_tpu_torch.stream.block_adaptive import (
-    make_block_step, ring_ptr0, rings_to_shift_layout)
+from se_snmf_nat_tpu_torch.stream.block_adaptive import ring_ptr0
+from se_snmf_nat_tpu_torch.stream.hops import HopFramer, overlap_add_hops
 from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_int16_write_torch
-
-
-def _hops_from_frames(recent, outs, shift: int):
-    """Overlap-add with a carried history, for NumPy arrays or tensors.
-    ``recent`` (B, ratio-1, L): the synthesised frames before this block,
-    oldest first; ``outs`` (B, K, L): the block's.  Returns (hops
-    (B, K, shift), the new history).  Output hop i adds chunk c of frame
-    i - c for c = 0, 1, ... in that order (newest frame first)."""
-    xp = torch if torch.is_tensor(outs) else np
-    both = (torch.cat if xp is torch else np.concatenate)([recent, outs], 1)
-    b, k, n = outs.shape
-    ratio = n // shift
-    chunks = both.reshape(b, k + ratio - 1, ratio, shift)
-    hops = xp.zeros_like(chunks[:, :k, 0])
-    for c in range(ratio):
-        hops += chunks[:, ratio - 1 - c: ratio - 1 - c + k, c]
-    return hops, both[:, k:]
 
 
 class MultiStreamSession:
@@ -128,20 +112,14 @@ class MultiStreamSession:
         s = enhancer.cfg.signal
         self._s = s
         self._dev = enhancer.device
-        self._delay = enhancer.cfg.delay
         self._np_dtype = (np.float64 if enhancer.dtype == torch.float64
                           else np.float32)
-        self._ratio = s.framelength // s.frameshift
-        self._queue = np.zeros((self.n, s.framelength))
-        self._hold = np.zeros((self.n, 0))
-        # the last ratio-1 synthesised frames of every lane, oldest first
-        self._recent = np.zeros((self.n, self._ratio - 1, s.framelength),
-                                self._np_dtype)
-        # a frame clock per lane: lanes tick in lockstep, but a lane reset
-        # in mid-session restarts its own clock at 0
-        self._l = np.zeros((self.n,), np.int64)
         self._block = max(int(block_frames), 1)
-        self._pending: list[np.ndarray] = []      # each (B, framelength)
+        self._framer = HopFramer(enhancer.cfg, self.n, self._block)
+        # the last ratio-1 synthesised frames of every lane, oldest first
+        self._recent = torch.zeros(
+            (self.n, s.framelength // s.frameshift - 1, s.framelength),
+            dtype=enhancer.dtype, device=self._dev)
         # block-adaptive fleets: mid-block set_adaptation calls wait here
         # as (lanes, on), applied in order at the next block boundary
         self._deferred_adapt_ops: list = []
@@ -157,33 +135,31 @@ class MultiStreamSession:
         self.state = states
         self._ba_step = None
         if use_block_adaptive and self._block > 1:
-            self._ba_step = make_block_step(
-                enhancer.cfg, *enhancer._bases, self._dev, enhancer.dtype,
-                k_block=self._block, iter_cap=enhancer.block_iter_cap)
-            self._ba_ptr = ring_ptr0(self.n, self._dev)
-        # ---- the samples wire: queue and overlap-add history on the device
+            self._ba_step = enhancer.block_step(self._block)
+        self._ba_ptr = ring_ptr0(self.n, self._dev)
         self._samples = wire == "samples"
         self._pipeline = bool(pipeline_ticks)
         self._inflight = None
-        # device copies current?  a frames-path tick leaves them stale
-        self._dev_synced = False
-        self._queue_preblock = None
-        # a queue zeroed in mid-block (flush, zero_queue_rows) breaks the
-        # shift chain the device rebuilds frames from: that block falls back
-        self._chain_broken = False
-        if self._samples:
-            self._queue_dev = torch.zeros((self.n, s.framelength),
-                                          dtype=enhancer.dtype,
-                                          device=self._dev)
-            self._recent_dev = torch.zeros(self._recent.shape,
-                                           dtype=enhancer.dtype,
-                                           device=self._dev)
-            self._dev_synced = True
+        # the samples wire's queue on the device as its last tick left it;
+        # None after a frames-path tick (the next tick uploads the framer's)
+        self._queue_dev = (torch.zeros((self.n, s.framelength),
+                                       dtype=enhancer.dtype, device=self._dev)
+                           if self._samples else None)
 
     @property
     def block_frames(self) -> int:
         """Frames a tick."""
         return self._block
+
+    @property
+    def _pending(self) -> list:
+        """The pending block's hops."""
+        return self._framer.pending
+
+    @property
+    def _l(self) -> np.ndarray:
+        """Each lane's frame clock."""
+        return self._framer.l
 
     # ------------------------------------------------------------------
     def _upload(self, a: np.ndarray) -> torch.Tensor:
@@ -196,39 +172,28 @@ class MultiStreamSession:
         return t.clone()
 
     @torch.no_grad()
-    def _flush_pending(self) -> list[tuple[np.ndarray, np.ndarray]]:
-        """Run the queued frame ticks through one call on the device;
-        returns one ((B, frameshift) chunk, (B,) emission mask) pair a tick.
-        The mask is per lane because the lanes' clocks may differ after a
+    def _tick(self, block) -> list[tuple[np.ndarray, np.ndarray]]:
+        """Run a framed block through one call on the device; returns one
+        ((B, K, frameshift) hops, (B, K) emission mask) pair a block.  The
+        mask is per lane because the lanes' clocks may differ after a
         ``reset_lanes``: a fresh lane emits nothing until its own frame
         number passes the algorithmic delay."""
-        if not self._pending:
+        if block is None:
             return []
-        k = len(self._pending)
-        l0 = self._l - k + 1                       # (B,) first tick's number
-        if self._samples and k == self._block and not self._chain_broken:
-            return self._tick_samples(k, l0)
+        if self._samples and block.k == self._block \
+                and block.hops is not None:
+            return self._tick_samples(block)
         # frames path: settle a pipelined tick first (its audio is older
-        # than this block's), then pull the overlap-add history off the
-        # device
-        pre = self._drain_inflight()
-        self._sync_host_recent()
-        self._chain_broken = False                 # the chain restarts below
-        return pre + self._tick_frames(k, l0)
+        # than this block's)
+        return self._drain_inflight() + self._tick_frames(block)
 
-    def _tick_samples(self, k: int, l0: np.ndarray):
-        """The samples-wire tick: raw hops up, int16 PCM down.  The hop of
-        pending frame i is its last ``frameshift`` samples; the device
+    def _tick_samples(self, block):
+        """The samples-wire tick: raw hops up, int16 PCM down; the device
         rebuilds the frames from its carried queue."""
-        s, enh = self._s, self.enh
-        shift = s.frameshift
-        hops = np.stack([p[:, -shift:] for p in self._pending], axis=1)
-        if not self._dev_synced:
-            # a frames-path tick ran since the last device tick: re-seed
-            # the device queue (as it was before this block) and history
-            self._queue_dev = self._upload(self._queue_preblock).to(enh.dtype)
-            self._recent_dev = self._upload(self._recent).to(enh.dtype)
-            self._dev_synced = True
+        enh = self.enh
+        hops = block.hops
+        if self._queue_dev is None or not block.continues:
+            self._queue_dev = self._upload(block.queue0).to(enh.dtype)
         # integer-valued samples (every int16 capture) go up as int16; the
         # cast to the compute dtype on the device is exact
         if (np.abs(hops).max(initial=0.0) <= 32767.0
@@ -237,18 +202,13 @@ class MultiStreamSession:
         else:
             hops_up = np.asarray(hops, self._np_dtype)
         hops_dev = self._upload(hops_up).to(enh.dtype)     # (B, K, shift)
-        l0_dev = self._upload(l0)
+        l0_dev = self._upload(block.l0)
         stage("stream.launch")
         pcm = self._device_tick(hops_dev, l0_dev)
-        self._pending = []
         self._apply_deferred_adapt()
-        # the host history is stale now; the device copy holds until a
-        # frames-path tick pulls it (_sync_host_recent)
         if not self._pipeline:
             stage("stream.fetch")
-            pcm = pcm.cpu().numpy()
-            stage("stream.emit")
-            return self._emit_pcm(pcm, l0, k)
+            return self._settle((pcm.cpu(), None, block.emit))
         # pipelined: leave this tick in flight and hand back the one before
         if self._dev.type == "cuda":
             buf = torch.empty(pcm.shape, dtype=pcm.dtype, pin_memory=True)
@@ -257,7 +217,7 @@ class MultiStreamSession:
             done.record()
         else:
             buf, done = pcm, None
-        prev, self._inflight = self._inflight, (buf, done, l0, k)
+        prev, self._inflight = self._inflight, (buf, done, block.emit)
         return self._settle(prev)
 
     def _device_tick(self, hops_dev: torch.Tensor,
@@ -273,30 +233,22 @@ class MultiStreamSession:
                         dim=1)
         frames = ext.unfold(1, s.framelength, shift)[:, 1:]   # (B, K, L)
         self._queue_dev = ext[:, -s.framelength:].contiguous()
-        mag, phase = enh._analysis(frames)
-        self.state, (xm,) = enh.frame_loop(
-            enh.engine, mag, self.state, [hops_dev.shape[1]] * self.n,
-            l0_dev)
-        out_hops, self._recent_dev = _hops_from_frames(
-            self._recent_dev, enh._synthesis(xm, phase), shift)
+        self.state, _, ys = enh.session_block(frames, self.state, None,
+                                              l0_dev)
+        out_hops, self._recent = overlap_add_hops(self._recent, ys, shift)
         return matlab_int16_write_torch(out_hops.reshape(self.n, -1))
 
     def _settle(self, tick) -> list[tuple[np.ndarray, np.ndarray]]:
-        """The emissions of a pipelined tick, once its copy has landed."""
+        """The emissions of a tick, once its PCM has landed on the host."""
         if tick is None:
             return []
-        buf, done, l0, k = tick
+        buf, done, emit = tick
         stage("stream.fetch")
         if done is not None:
             done.synchronize()
-        pcm = buf.numpy()
+        pcm = buf.numpy().reshape(emit.shape + (-1,))
         stage("stream.emit")
-        return self._emit_pcm(pcm, l0, k)
-
-    def _emit_pcm(self, pcm: np.ndarray, l0: np.ndarray, k: int):
-        shift = self._s.frameshift
-        return [(pcm[:, i * shift: (i + 1) * shift].astype(np.float64),
-                 l0 + i > self._delay) for i in range(k)]
+        return [(pcm.astype(np.float64), emit)]
 
     def _drain_inflight(self) -> list[tuple[np.ndarray, np.ndarray]]:
         """Fetch and emit the pipelined tick in flight, if any."""
@@ -308,79 +260,40 @@ class MultiStreamSession:
         sessions owe up to one block of audio between pushes)."""
         return self._assemble(self._drain_inflight(), self.n, quantize)
 
-    def _tick_frames(self, k: int, l0: np.ndarray):
-        """The frames-wire tick: (B, k, framelength) frames up, synthesised
-        frames down, overlap-add on the host (also the samples wire's path
-        for partial blocks and broken chains)."""
+    def _tick_frames(self, block):
+        """The frames-wire tick: (B, k, framelength) frames up, output hops
+        down (also the samples wire's path for the blocks it cannot take)."""
         enh = self.enh
         stage("stream.prep")
-        frames = self._upload(np.stack(self._pending, axis=1).astype(
-            self._np_dtype)).to(enh.dtype)
-        l0_dev = self._upload(l0)
+        frames = self._upload(block.frames.astype(self._np_dtype)).to(
+            enh.dtype)
+        l0_dev = self._upload(block.l0)
         stage("stream.launch")
-        mag, phase = enh._analysis(frames)
-        if self._ba_step is not None and k == self._block:
-            ls = l0_dev[:, None] + torch.arange(k, device=self._dev)
-            self.state, self._ba_ptr, xm = self._ba_step(
-                self.state, self._ba_ptr, mag, ls,
-                torch.ones((self.n, k), dtype=torch.bool, device=self._dev))
-        else:
-            if self._ba_step is not None:
-                # the partial tail runs through the exact loop: hand it the
-                # rings in shift layout and restart the circular pointers
-                self.state = rings_to_shift_layout(self.state, self._ba_ptr)
-                self._ba_ptr = ring_ptr0(self.n, self._dev)
-            self.state, (xm,) = enh.frame_loop(
-                enh.engine, mag, self.state, [k] * self.n, l0_dev)
-        ys = enh._synthesis(xm, phase)
+        self.state, self._ba_ptr, ys = enh.session_block(
+            frames, self.state, self._ba_ptr, l0_dev, self._ba_step)
+        hops, self._recent = overlap_add_hops(self._recent, ys,
+                                              self._s.frameshift)
+        self._queue_dev = None
         stage("stream.fetch")
-        outs = host_array(ys)                             # (B, k, L)
+        hops = host_array(hops)                           # (B, k, shift)
         stage("stream.emit")
-        self._pending = []
         self._apply_deferred_adapt()
-        hops, self._recent = _hops_from_frames(self._recent, outs,
-                                               self._s.frameshift)
-        return [(hops[:, i], l0 + i > self._delay) for i in range(k)]
-
-    def _sync_host_recent(self) -> None:
-        """Pull the overlap-add history off the device before a frames-path
-        tick (where the host's copy counts); the device copies go stale."""
-        if self._samples and self._dev_synced:
-            stage("stream.fetch")
-            self._recent = host_array(self._recent_dev).copy()
-            self._dev_synced = False
-
-    def _process_hop(self, hops: np.ndarray):
-        s = self._s
-        if not self._pending and self._samples:
-            # the queue before this block: after a frames-path tick the
-            # next samples tick re-seeds the device from here
-            self._queue_preblock = self._queue.copy()
-        self._queue = np.concatenate(
-            [self._queue[:, s.frameshift:], hops], axis=1)
-        self._l += 1
-        self._pending.append(self._queue.copy())
-        if len(self._pending) < self._block:
-            return []
-        return self._flush_pending()
+        return [(hops, block.emit)]
 
     @staticmethod
     def _assemble(emitted, n: int, quantize: bool) -> list[np.ndarray]:
-        """Per-lane concatenation of the masked emission chunks; float64
-        with ``quantize=False``."""
-        per_lane: list[list[np.ndarray]] = [[] for _ in range(n)]
-        for chunk, mask in emitted:
-            for i in np.nonzero(mask)[0]:
-                per_lane[i].append(chunk[i])
+        """Each lane's emitted hops, concatenated (float64 with
+        ``quantize=False``)."""
         out = []
-        for lanes in per_lane:
-            y = np.concatenate(lanes) if lanes else np.zeros((0,))
+        for i in range(n):
+            lane = [hops[i][emit[i]].reshape(-1) for hops, emit in emitted]
+            y = np.concatenate(lane) if lane else np.zeros((0,))
             out.append(enhanced_quantize(y) if quantize
                        else y.astype(np.float64))
         return out
 
     def _clocks_diverged(self) -> bool:
-        return np.unique(self._l).size > 1
+        return np.unique(self._framer.l).size > 1
 
     def push(self, samples: np.ndarray, quantize: bool = True) -> np.ndarray:
         """Feed (B, n) int16-scale samples (lockstep across lanes); returns
@@ -409,18 +322,13 @@ class MultiStreamSession:
         """``push`` returning one 1-D array a lane (lanes may owe different
         lengths when their clocks differ)."""
         with request("stream.prep"):
-            s = self._s
             samples = np.asarray(samples, np.float64)
             if samples.ndim != 2 or samples.shape[0] != self.n:
                 raise ValueError(f"push expects ({self.n}, n) samples")
-            buf = np.concatenate([self._hold, samples], axis=1)
             emitted = []
-            while buf.shape[1] >= s.frameshift:
-                stage("stream.prep")
-                hops, buf = buf[:, : s.frameshift], buf[:, s.frameshift:]
-                emitted.extend(self._process_hop(hops))
+            for block in self._framer.push(samples):
+                emitted.extend(self._tick(block))
             stage("stream.emit")
-            self._hold = buf
             return self._assemble(emitted, self.n, quantize)
 
     def flush(self, quantize: bool = True) -> np.ndarray:
@@ -430,15 +338,9 @@ class MultiStreamSession:
         if self._clocks_diverged():       # before anything is processed
             raise ValueError("lane clocks diverged; drain lanes through "
                              "zero_queue_rows and push_per_lane instead")
-        s = self._s
-        self._hold = np.zeros((self.n, 0))
         emitted = []
-        for _ in range(self._delay + 1):
-            self._queue = np.zeros((self.n, s.framelength))
-            self._queue_externally_zeroed()
-            emitted.extend(self._process_hop(np.zeros((self.n,
-                                                       s.frameshift))))
-        emitted.extend(self._flush_pending())
+        for block in self._framer.flush():
+            emitted.extend(self._tick(block))
         emitted.extend(self._drain_inflight())
         return np.stack(self._assemble(emitted, self.n, quantize), axis=0)
 
@@ -453,10 +355,10 @@ class MultiStreamSession:
         to the block boundary instead (flushing a partial block early would
         send those frames through the exact plan and shift the fleet's
         block cadence)."""
-        if self._ba_step is not None and self._pending:
+        if self._ba_step is not None and self._framer.pending:
             self._deferred_adapt_ops.append((lanes, bool(on)))
             return self._assemble([], self.n, quantize)
-        emitted = self._flush_pending() if self._pending else []
+        emitted = self._tick(self._framer.take())
         self._apply_adapt(lanes, on)
         return self._assemble(emitted, self.n, quantize)
 
@@ -475,24 +377,11 @@ class MultiStreamSession:
         self._deferred_adapt_ops = []
 
     # ----- the lane lifecycle of a multi-tenant server ------------------
-    def _queue_externally_zeroed(self) -> None:
-        """The samples wire's bookkeeping after the queue was zeroed from
-        outside: in mid-block the shift chain is broken (this block takes
-        the frames path); between blocks the next pre-block snapshot holds
-        the zeros, but the device's queue is stale."""
-        if not self._samples:
-            return
-        if self._pending:
-            self._chain_broken = True
-        else:
-            self._sync_host_recent()
-
     def zero_queue_rows(self, lanes) -> None:
         """The flush loop's queue zeroing for single lanes: call before each
         drain tick of a lane at its end of stream (then feed it zero hops)
         to reproduce ``StreamingSession.flush`` on that lane alone."""
-        self._queue[np.asarray(lanes, int)] = 0.0
-        self._queue_externally_zeroed()
+        self._framer.zero(lanes)
 
     @torch.no_grad()
     def reset_lanes(self, lanes) -> None:
@@ -501,23 +390,20 @@ class MultiStreamSession:
         clock restart; the other lanes are untouched.  Only at a tick
         boundary: no pending partial block, no pipelined tick in flight, no
         samples held."""
-        if self._pending:
+        if self._framer.pending:
             raise RuntimeError("reset_lanes requires an empty pending "
                                "block (tick until the block flushes)")
         if self._inflight is not None:
             # the tick in flight belongs to the old tenants
             raise RuntimeError("reset_lanes with a pipelined tick in "
                                "flight: call drain() first")
-        if self._hold.shape[1]:
+        if self._framer.hold.shape[1]:
             # the hold has one length for all lanes, so one lane's cannot be
             # emptied, and zeros in it would prepend silence to the new
             # tenant's stream
             raise RuntimeError("reset_lanes requires an empty sample hold: "
                                "push whole hops or drain the partial hop "
                                "first")
-        # samples wire: pull the live history before the host copy changes;
-        # the next device tick re-seeds queue and history from the host
-        self._sync_host_recent()
         lanes = np.asarray(lanes, int)
         sel = np.zeros((self.n,), bool)
         sel[lanes] = True
@@ -526,13 +412,10 @@ class MultiStreamSession:
             torch.where(sel_dev.reshape((self.n,) + (1,) * ini.dim()),
                         ini[None], full)
             for full, ini in zip(self.state, self.enh.initial_state())))
-        if self._ba_step is not None:
-            self._ba_ptr = torch.where(sel_dev,
-                                       torch.zeros_like(self._ba_ptr),
-                                       self._ba_ptr)
-        self._queue[lanes] = 0.0
-        self._recent[lanes] = 0.0
-        self._l[lanes] = 0
+        self._ba_ptr = torch.where(sel_dev, torch.zeros_like(self._ba_ptr),
+                                   self._ba_ptr)
+        self._recent = self._recent.masked_fill(sel_dev[:, None, None], 0.0)
+        self._framer.reset_lanes(lanes)
 
 
 def _lane_devices(mesh, n_streams: int) -> list:

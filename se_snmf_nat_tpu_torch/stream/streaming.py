@@ -8,14 +8,14 @@ state carried across pushes on the enhancer's device.  It runs the same
 ``Engine.step`` as the offline exact plan, frame by frame in the same order,
 so the streamed output equals ``SnmfEnhancer.enhance`` on the same device.
 
-The frame queue, the partial-hop hold and the overlap-add stay NumPy on the
-host; each processed block uploads its frames and downloads its synthesised
-frames, so a push that completes a block waits for the device.  The
-overlap-add keeps the synthesised frames in the enhancer's dtype and adds
-each output hop's chunks in the order of ``dsp.stft.overlap_add`` (newest
-frame first), which makes the float32 sums the same bits as the offline
-plan's.  With ``quantize=False`` the samples come back as float64, whatever
-the session's dtype.
+The hold, the queue and the pending block are a ``stream.hops.HopFramer``
+on the host; each processed block uploads its frames and downloads its
+synthesised frames, so a push that completes a block waits for the device.
+The overlap-add (``stream.hops.overlap_add_hops``) runs on the host in the
+enhancer's dtype, newest frame first as ``dsp.stft.overlap_add`` adds, which
+makes the float32 sums the same bits as the offline plan's.  With
+``quantize=False`` the samples come back as float64, whatever the session's
+dtype.
 
 Traced (``runtime.profiling``), a push is tiled by the spans
 ``stream.prep`` (the hold, the queue, the frames' upload),
@@ -34,8 +34,8 @@ from se_snmf_nat_tpu_torch.enhance.state import (
     EngineState, batch_state, lane_state)
 from se_snmf_nat_tpu_torch.io.wavio import enhanced_quantize
 from se_snmf_nat_tpu_torch.runtime.profiling import request, stage
-from se_snmf_nat_tpu_torch.stream.block_adaptive import (
-    make_block_step, ring_ptr0, rings_to_shift_layout)
+from se_snmf_nat_tpu_torch.stream.block_adaptive import ring_ptr0
+from se_snmf_nat_tpu_torch.stream.hops import HopFramer, overlap_add_hops
 
 
 class StreamingSession:
@@ -58,9 +58,6 @@ class StreamingSession:
     def __init__(self, enhancer, state: EngineState | None = None,
                  block_frames: int = 1, use_block_adaptive: bool = False):
         self.enh = enhancer
-        s = enhancer.cfg.signal
-        self._s = s
-        self._delay = enhancer.cfg.delay
         self._np_dtype = (np.float64 if enhancer.dtype == torch.float64
                           else np.float32)
         self._block = max(int(block_frames), 1)
@@ -69,10 +66,7 @@ class StreamingSession:
         self._deferred_adapt: bool | None = None
         self._ba_step = None
         if use_block_adaptive and self._block > 1:
-            self._ba_step = make_block_step(
-                enhancer.cfg, *enhancer._bases, enhancer.device,
-                enhancer.dtype, k_block=self._block,
-                iter_cap=enhancer.block_iter_cap)
+            self._ba_step = enhancer.block_step(self._block)
         self.reset(state)
 
     @property
@@ -89,14 +83,13 @@ class StreamingSession:
         queue, overlap-add history, hold, pending block and the frame
         counter all restart.  A warmed-then-reset session equals a fresh
         one."""
-        s = self._s
-        self._queue = np.zeros(s.framelength)
-        self._hold = np.zeros(0)            # partial-hop residue
-        # the last framelength/frameshift synthesised frames, newest first
-        ratio = s.framelength // s.frameshift
-        self._recent = [np.zeros(s.framelength, self._np_dtype)] * ratio
-        self._l = 0
-        self._pending: list[np.ndarray] = []   # queued analysis frames
+        s = self.enh.cfg.signal
+        self._framer = HopFramer(self.enh.cfg, 1, self._block)
+        # the last framelength/frameshift - 1 synthesised frames, oldest
+        # first
+        self._recent = np.zeros(
+            (1, s.framelength // s.frameshift - 1, s.framelength),
+            self._np_dtype)
         self.state = state if state is not None else self.enh.initial_state()
         self._deferred_adapt = None
         # circular write position of the block step's adaptation rings,
@@ -119,10 +112,10 @@ class StreamingSession:
         block boundary: flushing a partial block early would send those
         frames through the exact plan and shift the session's block cadence.
         Any samples finalised by the flush are returned, as by ``push``."""
-        if self._ba_step is not None and self._pending:
+        if self._ba_step is not None and self._framer.pending:
             self._deferred_adapt = bool(on)
             return self._emit([], quantize)
-        outs = self._flush_pending()
+        outs = self._run(self._framer.take())
         self._set_adapt(on)
         return self._emit(outs, quantize)
 
@@ -131,76 +124,39 @@ class StreamingSession:
         return enhanced_quantize(y) if quantize else y.astype(np.float64)
 
     @torch.no_grad()
-    def _flush_pending(self) -> list[np.ndarray]:
-        """Run the queued frames through one call on the device; returns
-        the emitted hop chunks."""
-        if not self._pending:
+    def _run(self, block) -> list[np.ndarray]:
+        """Run a framed block through one call on the device; returns the
+        samples it finalises (none for no block)."""
+        if block is None:
             return []
-        s, enh = self._s, self.enh
-        k = len(self._pending)
-        l0 = self._l - k + 1
-        frames = torch.as_tensor(np.stack(self._pending)[None],
-                                 dtype=enh.dtype, device=enh.device)
+        enh = self.enh
+        frames = torch.as_tensor(block.frames, dtype=enh.dtype,
+                                 device=enh.device)
         stage("stream.launch")
-        mag, phase = enh._analysis(frames)
-        if self._ba_step is not None and k == self._block:
-            self._state, self._ba_ptr, xm = self._ba_step(
-                self._state, self._ba_ptr, mag,
-                torch.arange(l0, l0 + k, device=enh.device),
-                torch.ones((1, k), dtype=torch.bool, device=enh.device))
-        else:
-            if self._ba_step is not None:
-                # the partial tail runs through the exact loop: hand it the
-                # rings in shift layout and restart the circular pointer
-                self._state = rings_to_shift_layout(self._state,
-                                                    self._ba_ptr)
-                self._ba_ptr = ring_ptr0(1, enh.device)
-            self._state, (xm,) = enh.frame_loop(enh.engine, mag, self._state,
-                                                [k], l0)
-        ys = enh._synthesis(xm, phase)[0]
+        self._state, self._ba_ptr, ys = enh.session_block(
+            frames, self._state, self._ba_ptr, int(block.l0[0]),
+            self._ba_step)
         stage("stream.fetch")
         outs = host_array(ys)
         stage("stream.emit")
-        self._pending = []
         if self._deferred_adapt is not None:
             # a mid-block set_adaptation takes effect at the block boundary;
             # the frames above ran under the previous setting, as pushed
             self._set_adapt(self._deferred_adapt)
             self._deferred_adapt = None
-        emitted = []
-        shift = s.frameshift
-        for i in range(k):
-            self._recent = [outs[i]] + self._recent[:-1]
-            if l0 + i > self._delay:
-                hop = np.zeros(shift, self._np_dtype)
-                for c, frame in enumerate(self._recent):
-                    hop += frame[c * shift: (c + 1) * shift]
-                emitted.append(hop)
-        return emitted
-
-    def _process_hop(self, hop: np.ndarray) -> list[np.ndarray]:
-        s = self._s
-        self._queue = np.concatenate([self._queue[s.frameshift:], hop])
-        self._l += 1
-        self._pending.append(self._queue.copy())
-        if len(self._pending) < self._block:
-            return []
-        return self._flush_pending()
+        hops, self._recent = overlap_add_hops(self._recent, outs,
+                                              enh.cfg.signal.frameshift)
+        return [hops[0][block.emit[0]].reshape(-1)]
 
     def push(self, samples: np.ndarray, quantize: bool = True) -> np.ndarray:
         """Feed any number of int16-scale samples; returns the finalised
         output samples available so far (possibly empty)."""
         with request("stream.prep"):
-            s = self._s
-            buf = np.concatenate([self._hold,
-                                  np.asarray(samples, np.float64).reshape(-1)])
             outs = []
-            while len(buf) >= s.frameshift:
-                stage("stream.prep")
-                hop, buf = buf[: s.frameshift], buf[s.frameshift:]
-                outs.extend(self._process_hop(hop))
+            for block in self._framer.push(
+                    np.asarray(samples, np.float64).reshape(1, -1)):
+                outs.extend(self._run(block))
             stage("stream.emit")
-            self._hold = buf
             return self._emit(outs, quantize)
 
     def flush(self, quantize: bool = True) -> np.ndarray:
@@ -208,11 +164,7 @@ class StreamingSession:
         flush frames with the queue fully zeroed (the reference zeroes the
         whole queue at the end instead of shifting hops in), then drain a
         partial block."""
-        s = self._s
-        self._hold = np.zeros(0)
         outs = []
-        for _ in range(self._delay + 1):
-            self._queue = np.zeros(s.framelength)   # whole queue, not a shift
-            outs.extend(self._process_hop(np.zeros(s.frameshift)))
-        outs.extend(self._flush_pending())
+        for block in self._framer.flush():
+            outs.extend(self._run(block))
         return self._emit(outs, quantize)

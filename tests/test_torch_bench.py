@@ -172,7 +172,7 @@ def test_device_tick_window_advances_a_fleet_as_push_does(setup):
         port, lanes, block, n_inner, np.random.default_rng(5))
     queue, recent, state, l0 = carry
     assert torch.equal(queue, pushed._queue_dev)
-    assert torch.equal(recent, pushed._recent_dev)
+    assert torch.equal(recent, pushed._recent)
     for a, b in zip(state, pushed.state):
         assert torch.equal(a, b)
     assert l0.tolist() == [1 + n_inner * block] * lanes

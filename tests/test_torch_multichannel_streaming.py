@@ -111,9 +111,9 @@ def test_session_reset_and_carried_state(mix, cfg):
     run = make_pmwf_streaming_run(cfg, PmwfParams(), **CPU64)
     _, st = run(frames_of(x, cfg)[:, :k], _init())
     sess.reset(st)
-    sess._queue = np.concatenate(                  # the split's queue
+    sess._framer.queue = np.concatenate(           # the split's queue
         [np.zeros((C, 480)), x[:, : k * 160]], axis=1)[:, -640:]
-    sess._l = k
+    sess._framer.l[:] = k
     tail = np.concatenate([sess.push(x[:, k * 160:]), sess.flush()], axis=1)
     start, seam = (k - cfg.delay) * 160, 640 - 160
     assert tail.shape[1] == full.shape[1] - start

@@ -17,6 +17,7 @@ from se_snmf_nat_tpu.stream.streaming import StreamingSession as JSession
 from se_snmf_nat_tpu_torch import fixtures
 from se_snmf_nat_tpu_torch.convert import config_from_jax, state_to_numpy
 from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+from se_snmf_nat_tpu_torch.stream.serving import MultiStreamSession
 from se_snmf_nat_tpu_torch.stream.streaming import StreamingSession
 
 torch.set_num_threads(1)
@@ -145,6 +146,37 @@ def test_block_adaptive_session_partial_tail(setup):
             getattr(st, name).astype(float),
             np.asarray(getattr(st_ref, name)).astype(float), rtol=1e-9,
             atol=1e-12, err_msg=name)
+
+
+def test_sessions_share_one_block_step_with_the_iteration_cap_only(setup):
+    """An enhancer builds one session step a K (``block_step``) that its
+    block-adaptive sessions and fleets all run, taking ``block_iter_cap``
+    without the offline plan's refit cap and fixed trips, as the
+    reference's sessions do; sessions pushed in turn on it keep their own
+    streams."""
+    cfg, bases, _, _, x = setup
+    enh = _port(cfg, bases, block_adapt=8, block_iter_cap=4,
+                block_refit_cap=2, block_fixed_iter=True)
+    kw = dict(block_frames=8, use_block_adaptive=True)
+    a, b = StreamingSession(enh, **kw), StreamingSession(enh, **kw)
+    fleet = MultiStreamSession(enh, 2, **kw)
+    assert a._ba_step is b._ba_step is fleet._ba_step is enh.block_step(8)
+    assert enh.block_step(16) is not enh.block_step(8)
+    step, offline = enh.block_step(8), enh.run.step
+    assert (step.h_iters, step.w_iters, step.h_eps) == (
+        4, 4, cfg.nmf.conv_eps)
+    assert (offline.h_iters, offline.w_iters, offline.h_eps) == (4, 2, 0.0)
+    x2 = np.ascontiguousarray(x[::-1])
+    pa, pb = [], []
+    for i in range(0, len(x), 1280):
+        pa.append(a.push(x[i: i + 1280]))
+        pb.append(b.push(x2[i: i + 1280]))
+    for sess, parts, sig in ((a, pa, x), (b, pb, x2)):
+        alone = StreamingSession(_port(cfg, bases, block_adapt=8,
+                                       block_iter_cap=4), **kw)
+        np.testing.assert_array_equal(
+            np.concatenate(parts + [sess.flush()]),
+            np.concatenate([alone.push(sig), alone.flush()]))
 
 
 def test_dft_matmul_propagates_to_streaming(setup):
