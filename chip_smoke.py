@@ -17,7 +17,8 @@ before printing any result.
    rounding to ~2e-4 on small entries), within twice the float32 plain
    version's own error; where early stops differ only agreeing
    columns/lanes compare.  K1 and K2 run at the main path's B=16 and B=64
-   (K1's last wave takes narrower column groups, also held alone; K2 with
+   (K1's last wave takes narrower column groups, also held alone, and at
+   B=64 K1 is also given a mixed per-lane flag, on both paths; K2 with
    its early stop and with fixed trips, a lane alone against the lane in
    its batch), print their launch shapes and
    ptxas's registers and spills, and two launches on the same inputs must
@@ -341,12 +342,49 @@ def ptxas_lines(log: str, kernel: str) -> list[str]:
     return out
 
 
+def check_k1_flag(mu, dev, args, cols, what):
+    """K1 given the block step's per-lane flag: ``ok[:, 0]`` of a (B, K)
+    mask, a strided view, with about 38% of the lanes clear, as the blocks
+    of ``nat_block88.mixed64`` past a lane's end leave them; held to the
+    plain version given the same flag (the clear lanes bit for bit: their
+    H0 columns and 0 trips), with ``k1.lanes`` and ``k1.lanes_skipped``
+    read from a profiled session begun just before the launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from se_snmf_nat_tpu_torch.runtime import profiling
+    b, _, n = args[0].shape
+    on = torch.as_tensor(np.random.default_rng(22).random(b) > 0.38,
+                         device=dev)
+    active = on[:, None].expand(b, n).contiguous()[:, 0]
+    with profiling.span("unseen"):   # the next span starts a session
+        pass
+    with profile(activities=[ProfilerActivity.CUDA]):
+        with profiling.span("k1_flag"):
+            h, trips = mu.mu_h_solve_lanes(*args, active=active)
+        torch.cuda.synchronize()
+    c = profiling.counters()
+    compare(f"K1 mu_h_solve_lanes {what} flag ({int(on.sum())} of {b} lanes "
+            f"active, stride {active.stride(0)})", h, trips,
+            lambda *a: mu.mu_h_solve_lanes_ref(*a, active=active), args,
+            cols)
+    h0 = args[2].expand(b, *h.shape[1:])
+    clear = (torch.equal(h[~on], h0[~on]) and not bool(trips[~on].any()))
+    counted = (c.get("k1.lanes"), c.get("k1.lanes_skipped"))
+    print(f"kernel K1 {what} flag: clear lanes H0 and 0 trips {clear}; "
+          f"k1.lanes, k1.lanes_skipped {counted} (want "
+          f"{(b, int((~on).sum()))})")
+    if not clear or counted != (b, int((~on).sum())):
+        raise AssertionError(f"K1 {what} with a flag: the clear lanes or "
+                             f"the counters are wrong")
+
+
 def check_h_kernel(mu, dev, rng, card, log):
     """K1 at the main path's B=16 and B=64, F=513, R=200, K=88, where the
     last wave's lanes run in narrower column groups: 22 fixed trips, and
     eps 1e-3 / cap 100, each launched twice (bit-identical) and held to the
-    plain version on all lanes and on the narrow-group lanes alone; timed
-    with 22 fixed trips, in turns with its plain version."""
+    plain version on all lanes and on the narrow-group lanes alone, and at
+    B=64 given a mixed per-lane flag (``check_k1_flag``); timed with 22
+    fixed trips, in turns with its plain version."""
     t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
     print(f"kernel K1 ptxas: {' | '.join(ptxas_lines(log, 'h_lanes_kernel'))}")
     h0 = t(rng.random((200, 88)))
@@ -387,6 +425,9 @@ def check_h_kernel(mu, dev, rng, card, log):
                                      "differ")
             if eps == 0.0:
                 max_abs[b] = err
+            if b == 64:
+                check_k1_flag(mu, dev, args, cols,
+                              f"B=64 K=88 trips={max_iter} eps={eps}")
         args = (vb, wb, h0, 22, 0.0, 5.0, 1e-9)
         k1, k2, p1, p2 = in_turns(lambda: mu.mu_h_solve_lanes(*args),
                                   lambda: mu.mu_h_solve_lanes_ref(*args))
@@ -1018,9 +1059,10 @@ def check_h_kernel_one_column(mu, dev, card, log):
     Prints the path, the clusters resident at once and the waves; held to
     the plain version and to the narrow schedule's twin with the trip
     counts compared column by column, launched twice (bit-identical), at
-    B=64 and 128 each of four lanes solved alone (the same bits as in the
-    batch), timed in turns with the plain version, beside the bound of
-    this run's trips.  Returns {B: (max abs error, ms, plain ms, bound ms,
+    B=64 given a mixed per-lane flag (``check_k1_flag``), at B=64 and 128
+    each of four lanes solved alone (the same bits as in the batch),
+    timed in turns with the plain version, beside the bound of this run's
+    trips.  Returns {B: (max abs error, ms, plain ms, bound ms,
     bound by, path)}."""
     from se_snmf_nat_tpu_torch import fixtures
     from se_snmf_nat_tpu_torch.config import default_config
@@ -1069,6 +1111,8 @@ def check_h_kernel_one_column(mu, dev, card, log):
               f"{int(trips.max())}")
         if not same:
             raise AssertionError("two K1 launches on the same inputs differ")
+        if b == 64:
+            check_k1_flag(mu, dev, args, cols, f"B={b} N=1")
         if b >= 64:
             alone = [0, 1, b // 2, b - 1]
             for i in alone:

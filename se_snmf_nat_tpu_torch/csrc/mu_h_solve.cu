@@ -54,6 +54,20 @@
 //   (1 of 16, 4 of 64 at C=8) are cut into narrower column groups so that
 //   the last wave spreads over the card.  A column's arithmetic does not
 //   depend on its group, so the result is the same bits.
+// * Lanes with nothing to solve: the caller may pass a flag a lane (the
+//   block step passes "this lane has a true frame in this block", so a
+//   block wholly past a lane's end is not solved; in a batch padded to its
+//   longest lane that is a third or more of the lane-blocks).  A CUDA graph
+//   fixes the grid, so the kernel plans its units itself, before W, the
+//   norms or any cluster barrier: each warp counts the set flags with
+//   ballots (A of them), the first units take the A active lanes in lane
+//   order under the wave-tail cut for A, the next ones copy the clear
+//   lanes' H0 columns (unscaled; 0 trips) a group a unit, and the rest of
+//   the grid (sized for the worst A on the host) exits at once.  So a
+//   launch's time follows its active lanes and its last wave spreads over
+//   the card; a column's bits do not depend on its group or unit.  The
+//   unit of a lane's first group adds 1 to counts[0] and, for a clear lane,
+//   to counts[1].
 //
 // Shared memory per block (floats; G columns padded to GP, a multiple of 4;
 // RP = R padded to 8; FP = ceil(F/C) padded to 4; W's row stride WS = RP + 4,
@@ -103,6 +117,35 @@ constexpr int MAX_GROUP = 96;
 constexpr size_t MAX_SMEM = 232448;   // 227 KB: a block's dynamic limit
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// The wave tail of A lanes of N columns in groups of g, with `resident`
+// clusters on the card at once: when the A lanes do not fill whole waves,
+// those of the last wave are cut into narrower groups (g2) so that its
+// clusters spread over the card.  Lanes below lanes_full take groups of g;
+// units is the clusters that makes.  The host plans a launch with it, and
+// the kernel plans its active lanes with it.
+struct Tail {
+  int lanes_full, g2, units;
+};
+
+__host__ __device__ inline Tail wave_tail(int A, int N, int g, int resident) {
+  const int ng = (N + g - 1) / g;
+  const int per_wave = resident / ng > 0 ? resident / ng : 1;
+  const int rem = A % per_wave;
+  Tail t;
+  t.lanes_full = A;
+  t.g2 = g;
+  if (rem > 0) {
+    const int pieces = resident / rem;
+    const int g2 = round4((N + pieces - 1) / pieces);
+    if (g2 < g) {
+      t.lanes_full = A - rem;
+      t.g2 = g2;
+    }
+  }
+  t.units = t.lanes_full * ng + (A - t.lanes_full) * ((N + t.g2 - 1) / t.g2);
+  return t;
+}
 
 // The shared-memory carve-out of one block, as float offsets.
 struct Layout {
@@ -330,30 +373,110 @@ __device__ void update_h(const Ctx& x, cg::cluster_group& cluster) {
   }
 }
 
+// A lane whose flag is clear: its H0 columns n0..n0+gv-1 as they came
+// (unscaled) and no trips, block `rank` of `blocks` its own rows of H; no
+// W, no norms, no barrier.
+__device__ void skip_lane(const float* h0l, float* hl, int* trips_l, int R,
+                          int N, int n0, int gv, int rank, int blocks) {
+  const int rc = (R + blocks - 1) / blocks;
+  const int rlo = min(R, rank * rc), rhi = min(R, rlo + rc);
+  for (int e = threadIdx.x; e < (rhi - rlo) * gv; e += blockDim.x) {
+    const size_t o = (size_t)(rlo + e / gv) * N + n0 + e % gv;
+    hl[o] = h0l[o];
+  }
+  if (rank == 0 && (int)threadIdx.x < gv) trips_l[n0 + threadIdx.x] = 0;
+}
+
+// The lanes whose flag is set, as each warp counts them on its own (every
+// warp gets the same count, with no barrier).
+__device__ int count_flags(const unsigned char* active, long long stride,
+                           int B) {
+  const int lane = threadIdx.x & 31;
+  int n = 0;
+  for (int base = 0; base < B; base += 32) {
+    const int i = base + lane;
+    n += __popc(__ballot_sync(0xffffffffu,
+                              i < B && active[(size_t)i * stride] != 0));
+  }
+  return n;
+}
+
+// The k-th lane (from 0) whose flag is `on`, as each warp finds it on its
+// own; -1 past the last.
+__device__ int kth_lane(const unsigned char* active, long long stride, int B,
+                        bool on, int k) {
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < B; base += 32) {
+    const int i = base + lane;
+    unsigned m = __ballot_sync(
+        0xffffffffu, i < B && (active[(size_t)i * stride] != 0) == on);
+    const int c = __popc(m);
+    if (k < c) {
+      for (; k > 0; --k) m &= m - 1;
+      return base + __ffs(m) - 1;
+    }
+    k -= c;
+  }
+  return -1;
+}
+
 __global__ void __launch_bounds__(THREADS, 1)
 h_lanes_kernel(const float* __restrict__ v, const float* __restrict__ w,
                const float* __restrict__ h0, long long h0_lane_stride,
-               float* __restrict__ h_out, int* __restrict__ trips_out, int F,
-               int R, int N, int g, int lanes_full, int g2, int max_iter,
-               float conv_eps, float sparsity, float flr) {
+               const unsigned char* __restrict__ active,
+               long long active_stride, float* __restrict__ h_out,
+               int* __restrict__ trips_out,
+               unsigned long long* __restrict__ counts, int F, int R, int N,
+               int B, int g, int resident, int max_iter, float conv_eps,
+               float sparsity, float flr) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  // this cluster's unit: lanes below lanes_full in groups of g, the rest in
-  // groups of g2
-  const int ng = (N + g - 1) / g, ng2 = (N + g2 - 1) / g2;
-  int b, n0;
-  if ((int)blockIdx.y < lanes_full * ng) {
-    b = blockIdx.y / ng;
-    n0 = (blockIdx.y % ng) * g;
-  } else {
-    const int y = blockIdx.y - lanes_full * ng;
-    b = lanes_full + y / ng2;
-    n0 = (y % ng2) * g2;
-    g = g2;
-  }
-  const Layout l = layout(F, R, g);
   const int tid = threadIdx.x;
   const int rank = (int)cluster.block_rank();
+  // this cluster's unit, before anything else (every block of the cluster
+  // takes the same): the wave-tail plan of the lanes to solve (all B, or
+  // those whose flag is set, in lane order); with flags, then a unit a
+  // group of g for each lane whose flag is clear; then units with nothing
+  // to do (the grid, fixed at launch, holds the most any count needs)
+  const bool flags = active != nullptr;
+  const int ng = (N + g - 1) / g;
+  const int na = flags ? count_flags(active, active_stride, B) : B;
+  const Tail t = wave_tail(na, N, g, resident);
+  const int u = blockIdx.y;
+  bool on = true;
+  int k, n0;
+  if (u < t.lanes_full * ng) {
+    k = u / ng;
+    n0 = (u % ng) * g;
+  } else if (u < t.units) {
+    const int ng2 = (N + t.g2 - 1) / t.g2, y = u - t.lanes_full * ng;
+    k = t.lanes_full + y / ng2;
+    n0 = (y % ng2) * t.g2;
+    g = t.g2;
+  } else if (u < t.units + (B - na) * ng) {
+    on = false;
+    k = (u - t.units) / ng;
+    n0 = ((u - t.units) % ng) * g;
+  } else {
+    return;
+  }
+  const int b = flags ? kth_lane(active, active_stride, B, on, k) : k;
+  if (b < 0) return;
+  if (flags) {
+    // the unit of the lane's first group tallies the lane, and whether it
+    // was skipped
+    if (counts != nullptr && n0 == 0 && rank == 0 && tid == 0) {
+      atomicAdd(counts, 1ULL);
+      if (!on) atomicAdd(counts + 1, 1ULL);
+    }
+    if (!on) {
+      skip_lane(h0 + (size_t)b * h0_lane_stride, h_out + (size_t)b * R * N,
+                trips_out + (size_t)b * N, R, N, n0, min(g, N - n0), rank,
+                C);
+      return;
+    }
+  }
+  const Layout l = layout(F, R, g);
   const bool early = conv_eps > 0.f;
 
   Ctx x;
@@ -516,8 +639,10 @@ struct Launch {
   }
 };
 
-// Returns 0, -1 when nothing fits in shared memory, or a CUDA error.
-int plan(int B, int F, int R, int N, Plan& p) {
+// With `flags` the grid holds the most units any count of active lanes
+// needs, the clear lanes' copies included.  Returns 0, -1 when nothing fits
+// in shared memory, or a CUDA error.
+int plan(int B, int F, int R, int N, bool flags, Plan& p) {
   int gm = round4(N) < MAX_GROUP ? round4(N) : MAX_GROUP;
   while (gm >= 4 && smem_bytes(F, R, gm) > MAX_SMEM) gm -= 4;
   if (gm < 4) return -1;
@@ -542,19 +667,15 @@ int plan(int B, int F, int R, int N, Plan& p) {
     asked_bytes = p.bytes;
   }
   p.resident = resident;
-  const int per_wave = resident / ng > 0 ? resident / ng : 1;
-  const int rem = B % per_wave;
-  p.lanes_full = B;
-  p.g2 = p.g;
-  if (rem > 0) {
-    const int pieces = resident / rem;
-    const int g2 = round4((N + pieces - 1) / pieces);
-    if (g2 < p.g) {
-      p.lanes_full = B - rem;
-      p.g2 = g2;
-    }
+  const Tail t = wave_tail(B, N, p.g, resident);
+  p.lanes_full = t.lanes_full;
+  p.g2 = t.g2;
+  p.units = t.units;
+  const int groups = (N + p.g - 1) / p.g;
+  for (int a = 0; flags && a < B; ++a) {
+    const int u = wave_tail(a, N, p.g, resident).units + (B - a) * groups;
+    p.units = u > p.units ? u : p.units;
   }
-  p.units = p.lanes_full * ng + (B - p.lanes_full) * ((N + p.g2 - 1) / p.g2);
   return 0;
 }
 
@@ -610,6 +731,12 @@ int plan(int B, int F, int R, int N, Plan& p) {
 // * One stop per column (per lane at N=1), the last trip's L skipped, no
 //   fast math, as on the wide path.  The launch is one cluster a lane,
 //   whatever B: a lane's bits depend only on its inputs and on (F, R, N).
+// * The flag a lane means what it means on the wide path: a cluster reads
+//   its lane's flag first, and a clear lane copies its H0 columns (0 trips)
+//   and exits before W's slice or any barrier.  The grid stays one cluster
+//   a lane; the counters are added by the lane's first block.  A launch
+//   with no flag runs an instance without that code (FLAG false): the
+//   early exit cost the N=1 kernel a 4-byte spill and 1-2% at every B.
 //
 // Shared memory per block (floats; WS = R padded to 4, NC = N padded to 1,
 // 2 or 4, FP = ceil(F/C), W = the warps): W slice FP*WS | V slice, floored,
@@ -891,15 +1018,18 @@ __device__ void pass(const Ctx& x, const Smem& s, float sparsity,
 // own one float4 of h (column c, rows 4q..4q+3) for the whole solve, in
 // registers with its 1'W + sparsity, the column's last cost and stop flag,
 // SLOTS of them a thread.
-template <int NC>
+template <int NC, bool FLAG>
 __global__ void __launch_bounds__(THREADS, NC == 1 ? MIN_BLOCKS
                                               : MIN_BLOCKS > 1 ? MIN_BLOCKS - 1
                                                                : 1)
 h_narrow_kernel(const float* __restrict__ v, const float* __restrict__ w,
                 const float* __restrict__ h0, long long h0_lane_stride,
-                float* __restrict__ h_out, int* __restrict__ trips_out,
-                int F, int R, int N, int max_iter, float conv_eps,
-                float sparsity, float flr, int vec) {
+                const unsigned char* __restrict__ active,
+                long long active_stride, float* __restrict__ h_out,
+                int* __restrict__ trips_out,
+                unsigned long long* __restrict__ counts, int F, int R, int N,
+                int max_iter, float conv_eps, float sparsity, float flr,
+                int vec) {
   constexpr int SLOTS = (NC * 32 * KJ + THREADS - 1) / THREADS;
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -907,6 +1037,20 @@ h_narrow_kernel(const float* __restrict__ v, const float* __restrict__ w,
   const int b = blockIdx.y;
   const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x;
+  if constexpr (FLAG) {
+    // the lane's flag before anything else (every block of the cluster
+    // reads the same): the lane tallied, and a clear one not solved
+    const bool on = active[(size_t)b * active_stride] != 0;
+    if (counts != nullptr && rank == 0 && tid == 0) {
+      atomicAdd(counts, 1ULL);
+      if (!on) atomicAdd(counts + 1, 1ULL);
+    }
+    if (!on) {
+      skip_lane(h0 + (size_t)b * h0_lane_stride, h_out + (size_t)b * R * N,
+                trips_out + (size_t)b * N, R, N, 0, N, rank, C);
+      return;
+    }
+  }
   const bool early = conv_eps > 0.f;
   const int ws = l.ws, nc4 = l.nc4;
   float* sW = smem + l.w;
@@ -1071,22 +1215,24 @@ h_narrow_kernel(const float* __restrict__ v, const float* __restrict__ w,
 }
 
 using Kernel = void (*)(const float*, const float*, const float*, long long,
-                        float*, int*, int, int, int, int, float, float, float,
-                        int);
+                        const unsigned char*, long long, float*, int*,
+                        unsigned long long*, int, int, int, int, float, float,
+                        float, int);
 
-// The columns padded to a kernel's NC, and that kernel; null past N*.
-Kernel kernel_for(int N, int& nc) {
+// The columns padded to a kernel's NC, and that kernel (the one that reads
+// a flag, or the one that takes none); null past N*.
+Kernel kernel_for(int N, bool flag, int& nc) {
   nc = N <= 1 ? 1 : N <= 2 ? 2 : 4;
   if (N > MU_H_NARROW_MAX) return nullptr;
   switch (nc) {
 #if MU_H_NARROW_MAX >= 1
-    case 1: return h_narrow_kernel<1>;
+    case 1: return flag ? h_narrow_kernel<1, true> : h_narrow_kernel<1, false>;
 #endif
 #if MU_H_NARROW_MAX >= 2
-    case 2: return h_narrow_kernel<2>;
+    case 2: return flag ? h_narrow_kernel<2, true> : h_narrow_kernel<2, false>;
 #endif
 #if MU_H_NARROW_MAX >= 3
-    case 4: return h_narrow_kernel<4>;
+    case 4: return flag ? h_narrow_kernel<4, true> : h_narrow_kernel<4, false>;
 #endif
     default: return nullptr;
   }
@@ -1118,10 +1264,10 @@ struct Launch {
 };
 
 // Whether (F, R, N) takes the narrow path: N <= N*, R <= 256 and the
-// slice's layout fits a block; p.kernel is null for the wide path.  Returns
-// 0 or a CUDA error.
-int plan(int F, int R, int N, Plan& p) {
-  p.kernel = kernel_for(N, p.nc);
+// slice's layout fits a block; p.kernel (given a flag or not) is null for
+// the wide path.  Returns 0 or a CUDA error.
+int plan(int F, int R, int N, bool flag, Plan& p) {
+  p.kernel = kernel_for(N, flag, p.nc);
   const size_t bytes = sizeof(float) * (size_t)layout(F, R, p.nc).floats;
   if (R > MAX_R || bytes > MAX_SMEM) p.kernel = nullptr;
   if (p.kernel == nullptr) return 0;
@@ -1136,14 +1282,16 @@ int plan(int F, int R, int N, Plan& p) {
   int dev = 0;
   err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  static int asked_dev = -1, asked_bytes = 0, asked_nc = 0, resident = 0;
-  if (asked_dev != dev || asked_bytes != p.bytes || asked_nc != p.nc) {
+  static int asked_dev = -1, asked_bytes = 0, resident = 0;
+  static Kernel asked_kernel = nullptr;
+  if (asked_dev != dev || asked_bytes != p.bytes ||
+      asked_kernel != p.kernel) {
     Launch l(p, 1, nullptr);
     err = cudaOccupancyMaxActiveClusters(&resident, p.kernel, &l.cfg);
     if (err != cudaSuccess) return (int)err;
     asked_dev = dev;
     asked_bytes = p.bytes;
-    asked_nc = p.nc;
+    asked_kernel = p.kernel;
   }
   p.resident = resident;
   return 0;
@@ -1161,7 +1309,7 @@ int plan(int F, int R, int N, Plan& p) {
 // kernel's 1, 2 or 4 columns, one cluster a lane.  Returns as plan().
 extern "C" int mu_h_solve_lanes_shape(int B, int F, int R, int N, int* out) {
   narrow::Plan q;
-  int rc = narrow::plan(F, R, N, q);
+  int rc = narrow::plan(F, R, N, false, q);
   if (rc != 0) return rc;
   if (q.kernel != nullptr) {
     const int res = q.resident > 0 ? q.resident : 1;
@@ -1171,7 +1319,7 @@ extern "C" int mu_h_solve_lanes_shape(int B, int F, int R, int N, int* out) {
     return 0;
   }
   Plan p;
-  rc = plan(B, F, R, N, p);
+  rc = plan(B, F, R, N, false, p);
   if (rc != 0) return rc;
   const int res = p.resident > 0 ? p.resident : 1;
   const int vals[11] = {C, p.g, (N + p.g - 1) / p.g, p.bytes, THREADS,
@@ -1183,35 +1331,41 @@ extern "C" int mu_h_solve_lanes_shape(int B, int F, int R, int N, int* out) {
 
 // C entry.  v (B,F,N), w (B,F,R), h0 (B,R,N) with lane stride h0_lane_stride
 // (0 broadcasts one (R,N) start to every lane); outputs h (B,R,N) and the
-// per-column trip counts (B,N).  N <= N* takes the narrow path, the rest
-// the wide one.  Launches on `stream`, does not synchronise; returns the
-// launch's error (a refused cluster launch included), or plan()'s -1.
+// per-column trip counts (B,N).  `active`, or null (every lane solved), is a
+// flag a lane, lane b's at active[b * active_stride]: a lane whose flag is 0
+// returns its H0 columns and 0 trips.  `counts` (2,) uint64, or null, is
+// added to where `active` is given: the lanes, and those skipped.  N <= N*
+// takes the narrow path, the rest the wide one; both take the flag.
+// Launches on `stream`, does not synchronise; returns the launch's error (a
+// refused cluster launch included) or plan()'s -1.
 extern "C" int mu_h_solve_lanes(const float* v, const float* w,
                                 const float* h0, long long h0_lane_stride,
-                                float* h, int* trips, int B, int F, int R,
-                                int N, int max_iter, float conv_eps,
+                                const unsigned char* active,
+                                long long active_stride, float* h, int* trips,
+                                unsigned long long* counts, int B, int F,
+                                int R, int N, int max_iter, float conv_eps,
                                 float sparsity, float flr, void* stream) {
   if (B == 0 || N == 0) return 0;
   narrow::Plan q;
-  int rc = narrow::plan(F, R, N, q);
+  int rc = narrow::plan(F, R, N, active != nullptr, q);
   if (rc != 0) return rc;
   cudaError_t err;
   if (q.kernel != nullptr) {
     const int vec = R % 4 == 0 &&
                     reinterpret_cast<unsigned long long>(w) % 16 == 0;
     narrow::Launch l(q, B, static_cast<cudaStream_t>(stream));
-    err = cudaLaunchKernelEx(&l.cfg, q.kernel, v, w, h0, h0_lane_stride, h,
-                             trips, F, R, N, max_iter, conv_eps, sparsity,
-                             flr, vec);
+    err = cudaLaunchKernelEx(&l.cfg, q.kernel, v, w, h0, h0_lane_stride,
+                             active, active_stride, h, trips, counts, F, R,
+                             N, max_iter, conv_eps, sparsity, flr, vec);
   } else {
     Plan p;
-    rc = plan(B, F, R, N, p);
+    rc = plan(B, F, R, N, active != nullptr, p);
     if (rc != 0) return rc;
     Launch l(p, static_cast<cudaStream_t>(stream));
     err = cudaLaunchKernelEx(&l.cfg, h_lanes_kernel, v, w, h0,
-                             h0_lane_stride, h, trips, F, R, N, p.g,
-                             p.lanes_full, p.g2, max_iter, conv_eps,
-                             sparsity, flr);
+                             h0_lane_stride, active, active_stride, h, trips,
+                             counts, F, R, N, B, p.g, p.resident, max_iter,
+                             conv_eps, sparsity, flr);
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

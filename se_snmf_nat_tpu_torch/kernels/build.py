@@ -37,8 +37,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the entries (see the sources)
 SIGNATURES = {
-    "mu_h_solve_lanes": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                         _F, _P],
+    "mu_h_solve_lanes": [_P, _P, _P, _L, _P, _L, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _F, _F, _F, _P],
     "mu_h_solve_lanes_shape": [_I, _I, _I, _I, _P],
     "mu_h_solve_columns": [_P, _L, _L, _P, _P, _L, _L, _P, _L, _L, _P, _P, _P,
                            _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],

@@ -23,7 +23,8 @@ from typing import NamedTuple
 import torch
 
 from se_snmf_nat_tpu_torch.enhance.blk_sparse import noise_bias, wiener_gain
-from se_snmf_nat_tpu_torch.kernels.mu import _check, count_launch
+from se_snmf_nat_tpu_torch.kernels.mu import (
+    _check, _check_flag, count_launch)
 
 
 class GainConsts(NamedTuple):
@@ -136,12 +137,6 @@ def gain_scan_plain(mag_blk, ym_dft_blk, xm, dm, q_blk, a_d_mag, a_x_mag,
     return GainScan(torch.stack(outs, dim=1), torch.stack(d_refs, dim=-1),
                     torch.stack(trigs, dim=1), lambda_dav_c, xm_tilde_prev,
                     switch.to(torch.int32), any_refit, qctl_last, ax_last)
-
-
-def _check_flag(name, t, shape, dev):
-    if t.device != dev or t.dtype != torch.bool or tuple(t.shape) != shape:
-        raise ValueError(f"{name} must be bool {shape} on {dev}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def gain_scan_lanes(mag_blk, ym_dft_blk, xm, dm, q_blk, a_d_mag, a_x_mag,

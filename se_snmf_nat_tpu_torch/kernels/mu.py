@@ -14,7 +14,11 @@
   column a frame (a warp a row group, both products from one sweep of W in
   registers, 4 blocks a SM; bound by that sweep and a trip's barriers).
   ``mu_h_solve_lanes_twin`` and ``mu_h_solve_lanes_narrow_twin`` are the
-  plain versions of the two schedules, for the tests.
+  plain versions of the two schedules, for the tests.  Both paths take an
+  optional per-lane ``active`` flag: a lane whose flag is clear is not
+  solved (its H0 columns come back, with 0 trips; the wide path maps its
+  clusters onto the active lanes), which the block step uses for the
+  blocks that lie wholly past a lane's end.
 * ``mu_w_solve_lanes`` (``csrc/mu_w_solve.cu``) replaces
   ``mu_pallas.py:_w_solve_kernel`` / ``pallas_w_solve`` and adds the
   per-lane ``active`` flag of ``snmf_solve``: the per-block refit.  Bound:
@@ -38,7 +42,9 @@ Each wrapper takes its plain version (``*_ref``) only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises; it never falls back.
 Each keeps a plain integer count of kernel launches (``.launches``); a
 launch recorded into a CUDA graph counts when the graph replays
-(``captured_launches``, ``count_replay``).  K2 also tallies its work in the
+(``captured_launches``, ``count_replay``).  K1 tallies the lanes of its
+launches given an ``active`` flag, and those of them it skipped, in
+``K1_COUNTERS``.  K2 also tallies its work in the
 counters ``K2_COUNTERS`` (``runtime.profiling``): the lane-trips its active
 lanes ran and the number of active lanes, added by the kernel on the card
 (every replay of a graph adds too) and on the host by the plain path.  K3
@@ -58,6 +64,7 @@ import torch
 from se_snmf_nat_tpu_torch.nmf.solver import (
     SnmfParams, snmf_h_solve_columns, snmf_solve)
 
+K1_COUNTERS = ("k1.lanes", "k1.lanes_skipped")
 K2_COUNTERS = ("k2.lane_trips", "k2.active_lanes")
 K3_COUNTERS = ("k3.columns", "k3.column_trips", "k3.ring_chunks",
                "k3.ring_waits")
@@ -94,13 +101,23 @@ def count_replay(tally: dict) -> None:
         wrapper.launches += n
 
 
+def _skip_lanes(h, trips, h0, active):
+    """The lanes whose ``active`` flag is clear (None: none) given their
+    h0 columns and 0 trips, as the kernel returns them unsolved."""
+    if active is None:
+        return h, trips
+    on = active.to(device=h.device, dtype=torch.bool)
+    return (torch.where(on[:, None, None], h, h0.expand(h.shape)),
+            torch.where(on[:, None], trips, torch.zeros_like(trips)))
+
+
 def mu_h_solve_lanes_ref(v, w, h0, max_iter: int, conv_eps: float,
-                         sparsity: float, flr: float):
+                         sparsity: float, flr: float, active=None):
     """Plain version of ``mu_h_solve_lanes``: the per-column solver."""
     res = snmf_h_solve_columns(
         v, w, h0, SnmfParams(sparsity=sparsity, max_iter=max_iter,
                              conv_eps=conv_eps, flr=flr))
-    return res.h, res.iters
+    return _skip_lanes(res.h, res.iters, h0, active)
 
 
 def _twin_trips(h, num, partials, dph, max_iter: int, conv_eps: float):
@@ -141,7 +158,7 @@ def _row_slices(f: int, cluster: int) -> list[slice]:
 
 def mu_h_solve_lanes_twin(v, w, h0, max_iter: int, conv_eps: float,
                           sparsity: float, flr: float, cluster: int,
-                          group: int):
+                          group: int, active=None):
     """Plain version of ``csrc/mu_h_solve.cu``'s wide schedule, for the
     tests (nothing on the main path uses it): the columns in groups of
     ``group``, F split into ``cluster`` row slices as the kernel splits it,
@@ -190,7 +207,8 @@ def mu_h_solve_lanes_twin(v, w, h0, max_iter: int, conv_eps: float,
         h, trips = _twin_trips(h, num, partials, dph, max_iter, conv_eps)
         h_out.append(h)
         trips_out.append(trips)
-    return torch.cat(h_out, dim=-1), torch.cat(trips_out, dim=-1)
+    return _skip_lanes(torch.cat(h_out, dim=-1), torch.cat(trips_out, dim=-1),
+                       h0, active)
 
 
 # The narrow path of csrc/mu_h_solve.cu: the most columns a lane it takes
@@ -229,7 +247,7 @@ def _narrow_warp_rows(nf: int, nc: int) -> list[list[int]]:
 
 
 def mu_h_solve_lanes_narrow_twin(v, w, h0, max_iter: int, conv_eps: float,
-                                 sparsity: float, flr: float):
+                                 sparsity: float, flr: float, active=None):
     """Plain version of ``csrc/mu_h_solve.cu``'s narrow schedule (N <= N*
     columns a lane), for the tests (nothing on the main path uses it): F
     split into ``NARROW_CLUSTER`` row slices as the kernel splits it, each
@@ -246,6 +264,7 @@ def mu_h_solve_lanes_narrow_twin(v, w, h0, max_iter: int, conv_eps: float,
     if not 1 <= n <= 4:
         raise ValueError(f"the narrow path takes 1 to 4 columns, not {n}")
     nc = 1 if n == 1 else 2 if n == 2 else 4
+    h_start = h0
     h0 = h0.expand(b, r, n)
     slices = _row_slices(f, NARROW_CLUSTER)
     warp_rows = [[torch.as_tensor([s.start + i for i in rows],
@@ -283,7 +302,8 @@ def mu_h_solve_lanes_narrow_twin(v, w, h0, max_iter: int, conv_eps: float,
 
     h = h0 * norm[:, :, None]
     num, _ = partials(h, False)
-    return _twin_trips(h, num, partials, dph, max_iter, conv_eps)
+    return _skip_lanes(*_twin_trips(h, num, partials, dph, max_iter,
+                                    conv_eps), h_start, active)
 
 
 def mu_h_solve_columns_ref(v, w, h0, max_iter: int, conv_eps: float,
@@ -396,6 +416,12 @@ def _check(name, t, shape, dev):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_flag(name, t, shape, dev):
+    if t.device != dev or t.dtype != torch.bool or tuple(t.shape) != shape:
+        raise ValueError(f"{name} must be bool {shape} on {dev}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def _raise_on(rc: int, name: str, unit: str):
     if rc == -1:
         raise ValueError(f"{name}: {unit} of this F and R does not fit in a "
@@ -409,15 +435,22 @@ _GROUP = "a column group of 4 columns and the cluster's slice of W"
 
 def mu_h_solve_lanes(v: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
                      max_iter: int, conv_eps: float, sparsity: float,
-                     flr: float):
+                     flr: float, active: torch.Tensor | None = None):
     """Per-column KL H-solve of B independent lanes.
 
     v (B, F, N), w (B, F, R), h0 (B, R, N) or (R, N) shared by every lane.
     Returns (h (B, R, N), trips (B, N) int32): each column freezes at its
-    own relative-cost stop; ``conv_eps <= 0`` runs ``max_iter`` trips."""
+    own relative-cost stop; ``conv_eps <= 0`` runs ``max_iter`` trips.
+    ``active`` (B,) bool, any stride, or None (every lane): a lane whose
+    flag is clear is not solved and returns its h0 columns and 0 trips; the
+    lanes and those skipped are added to ``K1_COUNTERS``, on both paths."""
+    from se_snmf_nat_tpu_torch.runtime.profiling import count, device_counters
     if v.device.type == "cpu":
+        if active is not None:
+            count(K1_COUNTERS[0], active.shape[0])
+            count(K1_COUNTERS[1], int((~active).sum()))
         return mu_h_solve_lanes_ref(v, w, h0, max_iter, conv_eps, sparsity,
-                                    flr)
+                                    flr, active)
     if v.device.type != "cuda":
         raise ValueError(f"unsupported device {v.device}")
     from se_snmf_nat_tpu_torch.kernels.build import load
@@ -432,13 +465,18 @@ def mu_h_solve_lanes(v: torch.Tensor, w: torch.Tensor, h0: torch.Tensor,
     else:
         _check("h0", h0, (b, r, n), dev)
         stride = r * n
+    flags, flag_stride, counts = None, 0, None
+    if active is not None:
+        _check_flag("active", active, (b,), dev)
+        flags, flag_stride = active.data_ptr(), active.stride(0)
+        counts = device_counters(K1_COUNTERS, dev).data_ptr()
     h = torch.empty((b, r, n), dtype=torch.float32, device=dev)
     trips = torch.empty((b, n), dtype=torch.int32, device=dev)
     lib = load().lib
     rc = lib.mu_h_solve_lanes(
-        v.data_ptr(), w.data_ptr(), h0.data_ptr(), stride, h.data_ptr(),
-        trips.data_ptr(), b, f, r, n, int(max_iter), float(conv_eps),
-        float(sparsity), float(flr),
+        v.data_ptr(), w.data_ptr(), h0.data_ptr(), stride, flags,
+        flag_stride, h.data_ptr(), trips.data_ptr(), counts, b, f, r, n,
+        int(max_iter), float(conv_eps), float(sparsity), float(flr),
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "mu_h_solve_lanes", _GROUP)
     count_launch(mu_h_solve_lanes)
@@ -453,9 +491,9 @@ def h_solve_lanes_shape(b: int, f: int, r: int, n: int) -> dict:
     (columns a cluster), groups a lane, shared-memory bytes and threads per
     block, clusters the card holds at once, the lanes solved in full
     groups, the narrower group of the last wave's lanes, the clusters
-    launched, the path ("wide" or "narrow": one cluster a lane, the group N
-    padded to 1, 2 or 4) and the waves of resident clusters.  Needs the
-    built library and the card."""
+    launched (with no flag), the path ("wide" or "narrow": one cluster a
+    lane, the group N padded to 1, 2 or 4) and the waves of resident
+    clusters.  Needs the built library and the card."""
     import ctypes
 
     from se_snmf_nat_tpu_torch.kernels.build import load

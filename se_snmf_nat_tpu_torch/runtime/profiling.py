@@ -84,11 +84,13 @@ def trace(log_dir: str):
 #
 # The counters the program keeps, by name: ``batch.frames_computed``,
 # ``batch.frames_true``, ``batch.lanes``, ``batch.lanes_int16``
-# (``SnmfEnhancer.enhance_batch``, host); ``k2.lane_trips``,
-# ``k2.active_lanes`` (K2's work tally) and ``k3.columns``,
-# ``k3.column_trips`` (K3's: the columns solved and their trips), added by
-# the kernels on the card and by the plain paths on the host
-# (``kernels.mu.K2_COUNTERS``, ``K3_COUNTERS``); ``runner.files``
+# (``SnmfEnhancer.enhance_batch``, host); ``k1.lanes``,
+# ``k1.lanes_skipped`` (the lanes K1 was given with a flag, and those it
+# did not solve), ``k2.lane_trips``, ``k2.active_lanes`` (K2's work tally)
+# and ``k3.columns``, ``k3.column_trips`` (K3's: the columns solved and
+# their trips), added by the kernels on the card and by the plain paths on
+# the host (``kernels.mu.K1_COUNTERS``, ``K2_COUNTERS``, ``K3_COUNTERS``);
+# ``runner.files``
 # (``BatchRunner``, host: the files read).
 
 SPAN_CAP = 1 << 20          # spans a session keeps; the rest are counted

@@ -83,9 +83,16 @@ class BlockStep(nn.Module):
     ``(state, ring_ptr, mag_blk (B, K, F), ls, ok_blk (B, K)) ->
     (state, ring_ptr, xm_tilde (B, K, F))``, with ``ls`` the block's 1-based
     frame numbers: an integer tensor, (K,) shared by every lane or (B, K)
-    with a row per lane (host integers are taken as a (K,) tensor).  Every
+    with a row per lane (host integers are taken as a (K,) tensor), and
+    ``ok_blk`` each lane's true frames, a prefix of the block (the frames
+    past a lane's end are padding and leave its state as it is).  Every
     branch on a frame number is a per-lane select, so the step reads no
-    device value on the host outside the plain solvers.
+    device value on the host outside the plain solvers.  K1 solves only the
+    lanes with a true frame in the block (``ok_blk[:, 0]``): a block wholly
+    past a lane's end feeds nothing that its output or state keeps.  Only
+    batches padded to their longest lane (``enhance_batch``, ``BatchRunner``)
+    have such blocks: push sessions and fleets give every lane a full block
+    (an all-true ``ok_blk``), so K1 skips nothing there.
 
     ``h_solver`` and ``w_solver`` say ``"kernel"`` (float32, beta=1) or
     ``"plain"``: any other dtype, since the kernels are float32 only, and a
@@ -194,7 +201,8 @@ class BlockStep(nn.Module):
         h0 = self.h0_col.expand(-1, k_block).contiguous()
         if self.h_solver == "kernel":
             a, _ = mu_h_solve_lanes(v_sep, w_sep, h0, self.h_iters,
-                                    self.h_eps, self.sparsity, H_SOLVE_FLR)
+                                    self.h_eps, self.sparsity, H_SOLVE_FLR,
+                                    active=ok_blk[:, 0])
         else:
             a = snmf_h_solve_columns(v_sep, w_sep, h0, SnmfParams(
                 self.beta, self.sparsity, self.h_iters, self.h_eps,

@@ -312,3 +312,87 @@ def test_block_step_per_lane_frame_numbers():
             assert _rel(got, want) < 1e-9, name
     # a refit moved some lane's head: the fixture drives the adaptation
     assert np.abs(got_st.b_d_head - bd[None, :, :R_A]).max() > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# Blocks wholly past a lane's end: K1 does not solve them
+# ---------------------------------------------------------------------------
+
+# hops a lane: a lane past its end in most blocks, one in the last, one
+# ending inside the first block, and the longest lane
+SKIP_HOPS = (41, 9, 26, 2)
+
+
+def _solve_every_lane(monkeypatch):
+    """K1 made to solve every lane of every block, as before the skip: the
+    block step's flag replaced by all-true."""
+    from se_snmf_nat_tpu_torch.stream import block_adaptive
+    real = block_adaptive.mu_h_solve_lanes
+
+    def solve_all(*args, active, **kw):
+        return real(*args, active=torch.ones_like(active), **kw)
+
+    monkeypatch.setattr(block_adaptive, "mu_h_solve_lanes", solve_all)
+
+
+def _skip_run(k_block):
+    from se_snmf_nat_tpu_torch.kernels import mu
+    from se_snmf_nat_tpu_torch.runtime import profiling
+    from se_snmf_nat_tpu_torch.stream.pipeline import SnmfEnhancer
+    cfg = config_from_jax(_cfg())
+    bx, bd = fixtures.structured_bases(cfg.signal.n_bins, 16, 16, seed=0)
+    opts = PLANS[k_block]
+    enh = SnmfEnhancer(cfg, bx, bd, bx, bd, device="cpu",
+                       block_adapt=k_block, frame_bucket=k_block,
+                       block_iter_cap=opts["iter_cap"],
+                       block_refit_cap=opts["refit_iter_cap"],
+                       block_fixed_iter=opts["fixed_iter"],
+                       dft_matmul=opts["dft_matmul"])
+    s = cfg.signal
+    xs = [np.rint(fixtures.noisy_utterance(n * s.frameshift + 37 * (i % 2),
+                                           seed=i + 1))
+          for i, n in enumerate(SKIP_HOPS)]
+    before = profiling.counters()
+    pcm = enh.enhance_batch(xs, micro_batch=None)
+    true = [enh.frames_for(x) for x in xs]
+    t_valid = [len(f) for f in true]
+    t = -(-max(t_valid) // k_block) * k_block
+    frames = np.stack([np.concatenate([f, np.zeros((t - len(f), f.shape[1]))])
+                       for f in true])
+    with torch.no_grad():
+        y, st = enh.run_frames(torch.as_tensor(frames, dtype=torch.float32),
+                               None, t_valid)
+    after = profiling.counters()
+    skipped = {k: after.get(k, 0) - before.get(k, 0) for k in mu.K1_COUNTERS}
+    return pcm, y, st, skipped, bd
+
+
+@pytest.mark.parametrize("k_block", sorted(PLANS))
+def test_blocks_past_a_lanes_end_are_not_solved_and_change_no_bit(
+        k_block, monkeypatch):
+    """float32, K1 through its plain path: a batch of mixed lengths gives
+    every lane's int16 output, its float output and every field of its final
+    state bit for bit as the same batch with K1 made to solve every lane of
+    every block, though K1 then returns another H for the blocks wholly past
+    a lane's end (the masks of Q, G, the ring push and K2 select on ``ok``
+    and ``any_refit``); the skipped lane-blocks are counted."""
+    pcm, y, st, skipped, bd = _skip_run(k_block)
+    _solve_every_lane(monkeypatch)
+    pcm_all, y_all, st_all, skipped_all, _ = _skip_run(k_block)
+    frames = max(SKIP_HOPS) + _cfg().delay + 1
+    blocks = -(-frames // k_block)
+    lane_blocks = len(SKIP_HOPS) * blocks
+    # each call (enhance_batch, run_frames) offers every lane-block once
+    assert skipped["k1.lanes"] == skipped_all["k1.lanes"] == 2 * lane_blocks
+    assert skipped_all["k1.lanes_skipped"] == 0
+    n_skip = sum(blocks - -(-(n + _cfg().delay + 1) // k_block)
+                 for n in SKIP_HOPS)
+    assert n_skip > 0 and skipped["k1.lanes_skipped"] == 2 * n_skip
+    for a, b in zip(pcm, pcm_all):
+        assert a.dtype == np.int16 and np.array_equal(a, b)
+    assert torch.equal(y, y_all)
+    for name in EngineState._fields:
+        assert torch.equal(getattr(st, name), getattr(st_all, name)), name
+    # the fixture drives the adaptation: a refit moved some lane's head
+    assert (st.b_d_head - torch.as_tensor(
+        bd[:, :R_A], dtype=torch.float32)).abs().max() > 1e-3

@@ -364,10 +364,10 @@ class _NoHostReads:
 def _solver_outside(guard, fn):
     """The plain solver ``fn`` run with the guard lifted: on the card its
     place is taken by a kernel launch, which reads nothing."""
-    def run(*args):
+    def run(*args, **kwargs):
         guard.__exit__()
         try:
-            return fn(*args)
+            return fn(*args, **kwargs)
         finally:
             guard.__enter__()
     return run

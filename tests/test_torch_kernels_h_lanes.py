@@ -133,3 +133,60 @@ def test_h_lanes_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         mu.mu_h_solve_lanes(meta, meta, meta, 5, 0.0, SPARSITY, FLR)
     assert mu.mu_h_solve_lanes.launches == n0
+
+
+ACTIVE = (True, False, True)
+
+
+@pytest.mark.parametrize("h0_lanes", [False, True])
+@pytest.mark.parametrize("eps", [0.0, 1e-3])
+@pytest.mark.parametrize("plain", ["twin", "ref", "narrow"])
+def test_h_lanes_inactive_lanes_return_h0_and_no_trips(plain, eps, h0_lanes):
+    """A lane whose ``active`` flag is clear comes back unsolved, as the
+    kernel's cluster returns it on either path: its h0 columns as given
+    (one start shared by every lane, or its own) and 0 trips; the active
+    lanes keep the bits of a call with no flag, in every column group of
+    the wide schedule (K=37 spans three) and on the narrow one (K=4)."""
+    t = torch.as_tensor
+    k = 4 if plain == "narrow" else 37
+    v, w, h0 = _inputs(k, np.float32)
+    if h0_lanes:
+        h0 = np.stack([h0 * (1 + i) for i in range(B)])
+    if plain == "twin":
+        def fn(*a, **kw):
+            return mu.mu_h_solve_lanes_twin(*a, 8, GROUP, **kw)
+    elif plain == "narrow":
+        fn = mu.mu_h_solve_lanes_narrow_twin
+    else:
+        fn = mu.mu_h_solve_lanes_ref
+    args = (t(v), t(w), t(h0), _trips(eps), eps, SPARSITY, FLR)
+    h_all, trips_all = fn(*args)
+    active = torch.tensor(ACTIVE)
+    h, trips = fn(*args, active=active)
+    assert torch.equal(h[active], h_all[active])
+    assert torch.equal(trips[active], trips_all[active])
+    assert int(trips_all[~active].min()) > 0
+    assert torch.equal(h[~active], t(h0).expand(B, R, k)[~active])
+    assert not bool(trips[~active].any())
+    h_on, trips_on = fn(*args, active=torch.ones(B, dtype=torch.bool))
+    assert torch.equal(h_on, h_all) and torch.equal(trips_on, trips_all)
+
+
+def test_h_lanes_wrapper_counts_the_lanes_given_a_flag_on_the_cpu():
+    """On the CPU the wrapper adds the lanes of a call given a flag, and
+    those skipped, to ``k1.lanes`` and ``k1.lanes_skipped``; a call with no
+    flag adds nothing."""
+    from se_snmf_nat_tpu_torch.runtime import profiling
+    assert mu.K1_COUNTERS == ("k1.lanes", "k1.lanes_skipped")
+    t = torch.as_tensor
+    v, w, h0 = _inputs(8, np.float32)
+    args = (t(v), t(w), t(h0), 5, 0.0, SPARSITY, FLR)
+    before = profiling.counters()
+    mu.mu_h_solve_lanes(*args)
+    h, trips = mu.mu_h_solve_lanes(*args, active=torch.tensor(ACTIVE))
+    mu.mu_h_solve_lanes(*args, active=torch.tensor([False] * B))
+    after = profiling.counters()
+    got = {k: after.get(k, 0) - before.get(k, 0) for k in mu.K1_COUNTERS}
+    assert got == {"k1.lanes": 2 * B, "k1.lanes_skipped": 1 + B}
+    ref = mu.mu_h_solve_lanes_ref(*args, active=torch.tensor(ACTIVE))
+    assert torch.equal(h, ref[0]) and torch.equal(trips, ref[1])

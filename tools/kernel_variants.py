@@ -238,8 +238,8 @@ def time_h1_clocks(dev, card):
 
             def call():
                 return fn(v.data_ptr(), w.data_ptr(), h0.data_ptr(), 0,
-                          h.data_ptr(), trips.data_ptr(), b, 513, 200, 1,
-                          cap, eps, 5.0, 1e-9, stream)
+                          None, 0, h.data_ptr(), trips.data_ptr(), None, b,
+                          513, 200, 1, cap, eps, 5.0, 1e-9, stream)
 
             if call():
                 raise RuntimeError("clock variant: launch error")
@@ -419,9 +419,9 @@ def time_h1(dev, card, names):
                 def call(name):
                     h, trips = out[name]
                     rc = libs[name].mu_h_solve_lanes(
-                        v.data_ptr(), w.data_ptr(), h0.data_ptr(), 0,
-                        h.data_ptr(), trips.data_ptr(), b, 513, 200, n, cap,
-                        eps, 5.0, 1e-9, stream)
+                        v.data_ptr(), w.data_ptr(), h0.data_ptr(), 0, None,
+                        0, h.data_ptr(), trips.data_ptr(), None, b, 513, 200,
+                        n, cap, eps, 5.0, 1e-9, stream)
                     if rc:
                         raise RuntimeError(f"{name}: launch error {rc}")
 
