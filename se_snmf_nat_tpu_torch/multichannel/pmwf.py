@@ -5,13 +5,18 @@ reference package's ``multichannel/pmwf.py``.
 Reference math: src/PSD_cov_mat.m (Jin/Shin/Kim SPL 2015 spectro-temporal
 covariance) + src/PMWF_sep_event_RT_CHiME.m:120-177 (noise covariance frozen
 from the init period, Ecov = Ycov - Ncov, per-bin filter
-H_j = (Ncov+eps I)^-1 Ecov / (beta + trace) u_j).  The offline plan:
+H_j = (Ncov+eps I)^-1 Ecov / (beta + trace) u_j).  The offline plan, over
+a lane axis (one utterance a lane, each its own length):
 
-  device: per-channel batched STFT -> complex spectra Y (C, F, T)
-          -> neighborhood covariances (T, F, C, C)
-          -> Ncov = sum over the init period; per-block Ycov sums
+  host:   the int16 host half (``stream/batch_host.BatchHost``): each
+          lane's channels packed as int16, one upload a chunk
+  device: framing -> per-channel STFT -> complex spectra Y (B, C, F, T)
+          -> neighborhood covariances (B, T, F, C, C)
+          -> a lane's Ncov = sum over its init period; per-block Ycov sums
           -> batched (F, C, C) unrolled Cholesky solves + trace -> filters
-          -> filtered spectra -> batched iSTFT + OLA per output channel
+          -> filtered spectra -> iSTFT + OLA per output channel
+          -> MATLAB's int16 write
+  host:   int16 PCM fetched, a copy a lane
 
 Boundary semantics of PSD_cov_mat.m:13-17 are kept: frequency bins within
 M_PMWF of either edge collapse the whole frequency neighborhood onto the
@@ -40,9 +45,10 @@ import torch
 
 from se_snmf_nat_tpu_torch.config import PipelineConfig, default_config
 from se_snmf_nat_tpu_torch.device import resolve_device
-from se_snmf_nat_tpu_torch.dsp.stft import overlap_add, stream_frames
+from se_snmf_nat_tpu_torch.dsp.stft import (
+    overlap_add, stream_frames, stream_frames_torch)
 from se_snmf_nat_tpu_torch.dsp.windows import sqrt_hann_periodic
-from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_int16_write
+from se_snmf_nat_tpu_torch.stream.batch_host import BatchHost
 
 
 @dataclass(frozen=True)
@@ -137,20 +143,10 @@ def spectro_temporal_cov(y: torch.Tensor, m_nbr: int, l_nbr: int
     the sum over the (2*m_nbr+1)x(2*l_nbr+1) neighborhood of frame t
     (PSD_cov_mat.m with the boundary-collapse rule; time edges clamp to the
     valid range, matching the reference's behavior of only evaluating
-    frames with a full temporal neighborhood)."""
-    _, f, t = y.shape
-    idx = collapse_index(f, m_nbr, y.device)
-    z = y[:, idx, :].permute(3, 0, 1, 2)          # (T, C, M, F)
-    r = frame_cov(z).permute(0, 3, 1, 2)          # (T, F, C, C)
-    # temporal box sum of width 2L+1 with edge clamping, as the reference
-    # package's cumulative-sum difference
-    if l_nbr > 0:
-        pad = torch.cat([r[:1].expand(l_nbr, -1, -1, -1), r,
-                         r[-1:].expand(l_nbr, -1, -1, -1)], dim=0)
-        cs = torch.cat([torch.zeros_like(pad[:1]),
-                        torch.cumsum(pad, dim=0)], dim=0)
-        r = cs[2 * l_nbr + 1:] - cs[:t]
-    return r
+    frames with a full temporal neighborhood): ``lane_box_cov`` of one
+    lane."""
+    return lane_box_cov(y[None], np.asarray([y.shape[-1]]), m_nbr,
+                        l_nbr)[0]
 
 
 def _real_dtype(cdtype: torch.dtype) -> torch.dtype:
@@ -326,9 +322,107 @@ def emit_samples(y: np.ndarray, n_frames: int, cfg: PipelineConfig,
     return emit
 
 
+# ---------------------------------------------------------------------------
+# The offline plan over lanes
+# ---------------------------------------------------------------------------
+
+def lane_box_cov(y: torch.Tensor, t_true: np.ndarray, m_nbr: int,
+                 l_nbr: int) -> torch.Tensor:
+    """The spectro-temporal covariances of each lane of y (B, C, F, T) over
+    its own first ``t_true[b]`` frames: (B, T, F, C, C), entries past a
+    lane's frames unspecified.  At each frame the outer products of the
+    2M+1 shifted spectra are summed into one accumulator in shift order
+    (``frame_cov``'s sum, without its (..., M, F) product); then the
+    temporal box of 2L+1 frames as the difference of a prefix sum over the
+    frames, clamped at the lane's own first and last frame.  A prefix sum
+    adds in frame order, so a lane's entries do not depend on the other
+    lanes."""
+    b, _, f, t = y.shape
+    idx = collapse_index(f, m_nbr, y.device)
+    z = y[:, :, idx, :].permute(0, 4, 1, 2, 3)      # (B, T, C, M, F)
+    r = None
+    for m in range(idx.shape[0]):
+        zm = z[..., m, :]
+        p = cmul_conj(zm[..., :, None, :], zm[..., None, :, :])
+        r = p if r is None else r + p
+    del z, p
+    r = r.permute(0, 1, 4, 2, 3)                    # (B, T, F, C, C)
+    if l_nbr > 0:
+        tt = torch.as_tensor(t_true, device=y.device)
+        ti = torch.arange(-l_nbr, t + l_nbr, device=y.device)[None]
+        ti = torch.minimum(ti.clamp(min=0), (tt - 1)[:, None])
+        pad = r[torch.arange(b, device=y.device)[:, None], ti]
+        del r
+        cs = torch.cat([torch.zeros_like(pad[:, :1]),
+                        torch.cumsum(pad, dim=1)], dim=1)
+        del pad
+        r = cs[:, 2 * l_nbr + 1:] - cs[:, :t]
+    return r
+
+
+def _lane_divide(x: torch.Tensor, divisors: np.ndarray) -> torch.Tensor:
+    """``cdiv_real(x[b], divisors[b])`` for each lane b of x (B, ...), each
+    lane divided by its divisor as a number, as ``cdiv_real`` of one lane
+    divides."""
+    out = None
+    for v in np.unique(divisors):
+        part = cdiv_real(x, int(v))
+        if out is None:
+            out = part
+        else:
+            sel = torch.as_tensor(divisors == v, device=x.device)
+            out = torch.where(sel.reshape((-1,) + (1,) * (x.dim() - 1)),
+                              part, out)
+    return out
+
+
+def lane_ncov(covs: torch.Tensor, t_true: np.ndarray,
+              p: PmwfParams) -> torch.Tensor:
+    """Each lane's noise covariance (B, F, C, C) from covs (B, T, F, C, C):
+    the sum of its first ``init_n_len`` frames (all of them when it has
+    fewer), in frame order, over that count less one."""
+    dev = covs.device
+    n_init = np.minimum(p.init_n_len, t_true)
+    ncov = covs[:, 0]
+    for k in range(1, int(n_init.max())):
+        on = torch.as_tensor(k < n_init, device=dev)[:, None, None, None]
+        ncov = torch.where(on, ncov + covs[:, k], ncov)
+    return _lane_divide(ncov, np.maximum(n_init - 1, 1))
+
+
+def lane_filters(covs: torch.Tensor, t_true: np.ndarray,
+                 p: PmwfParams) -> torch.Tensor:
+    """The filter bank of each lane's blocks: covs (B, T, F, C, C) ->
+    (B, NB, F, J, C) for NB = the longest lane's ``norm_period`` blocks.
+    Each lane's Ncov is ``lane_ncov``'s; each block's Ycov the sum of its
+    ``norm_period`` frames over ``norm_period`` - 1, a lane's last block
+    filled with its last frame (PMWF_sep_event_RT_CHiME.m:117, :138: the
+    reference's sum/(n-1) normalisation, which does not cancel through
+    (Ncov+dI)^-1 Ecov/(beta+tr) because diag_load and beta are
+    absolute)."""
+    b, t = covs.shape[:2]
+    dev = covs.device
+    ncov = lane_ncov(covs, t_true, p)
+    n_blocks = -(-t // p.norm_period)
+    lanes = torch.arange(b, device=dev)[:, None]
+    first = torch.arange(n_blocks, device=dev)[None] * p.norm_period
+    last = torch.as_tensor(t_true - 1, device=dev)[:, None]
+    ysum = covs[lanes, torch.minimum(first, last)]
+    for j in range(1, p.norm_period):
+        ysum = ysum + covs[lanes, torch.minimum(first + j, last)]
+    ecov = cdiv_real(ysum, p.norm_period - 1) - ncov[:, None]
+    return pmwf_filters(ncov[:, None].expand_as(ecov), ecov, p.beta,
+                        p.diag_load)
+
+
 class PmwfEnhancer:
     """Offline multichannel PMWF enhancement (on the card unless
-    ``device`` names another)."""
+    ``device`` names another): ``enhance`` one (C, n) utterance,
+    ``enhance_batch`` many as the lanes of one plan (``run_lanes``), through
+    the int16 host half the SNMF enhancer uses (``stream/batch_host``)."""
+
+    # the share of the card's memory a chunk's lanes may take
+    MEMORY_SHARE = 0.3
 
     def __init__(self, cfg: PipelineConfig | None = None,
                  params: PmwfParams | None = None, dtype=torch.float32,
@@ -341,44 +435,84 @@ class PmwfEnhancer:
         self.win = torch.as_tensor(
             sqrt_hann_periodic(self.cfg.signal.framelength), dtype=dtype,
             device=self.device)
+        self._batch_host = BatchHost(self.device, dtype,
+                                     self.cfg.signal.frameshift,
+                                     self.cfg.delay)
 
-    def run(self, frames: torch.Tensor) -> torch.Tensor:
-        """(C, T, framelength) frames -> (C, n) OLA waveforms."""
+    def run_lanes(self, frames: torch.Tensor, t_true) -> torch.Tensor:
+        """(B, C, T, framelength) frames, lane b's first ``t_true[b]`` its
+        own -> (B, J, n) OLA waveforms (J = C, or 1 with ``ref_ch``).  A
+        lane's samples over its own frames are those of the lane alone."""
         s, p = self.cfg.signal, self.params
-        t = frames.shape[1]
+        tt = np.asarray(t_true, np.int64).reshape(-1)
+        t = frames.shape[2]
         y = analysis(frames.to(self.dtype), self.win, s,
-                     self.cdtype).transpose(1, 2)            # (C, F, T)
-        covs = spectro_temporal_cov(y, p.m_nbr, p.l_nbr)     # (T,F,C,C)
-        n_init = min(p.init_n_len, t)
-        # the reference normalizes accumulated covariances by
-        # (norm_period - 1) — sum/(n-1), not a mean — and the scale does
-        # NOT cancel through (Ncov+dI)^-1 Ecov/(beta+tr) because diag_load
-        # and beta are absolute (PMWF_sep_event_RT_CHiME.m:117,138)
-        ncov = cdiv_real(ordered_sum(covs[:n_init], 0), max(n_init - 1, 1))
-        # per-block accumulated noisy covariance (norm_period frames)
-        n_blocks = -(-t // p.norm_period)
-        pad_t = n_blocks * p.norm_period - t
-        if pad_t:
-            covs = torch.cat([covs, covs[-1:].expand(pad_t, -1, -1, -1)])
-        blocks = covs.reshape(n_blocks, p.norm_period, *covs.shape[1:])
-        ycov_blocks = cdiv_real(ordered_sum(blocks, 1), p.norm_period - 1)
-        ecov_blocks = ycov_blocks - ncov[None]
-        h = pmwf_filters(ncov.expand_as(ecov_blocks), ecov_blocks, p.beta,
-                         p.diag_load)                        # (nb,F,J,C)
+                     self.cdtype).transpose(-1, -2)         # (B, C, F, T)
+        h = lane_filters(lane_box_cov(y, tt, p.m_nbr, p.l_nbr), tt, p)
         block_idx = torch.clamp_max(
             torch.arange(t, device=frames.device) // p.norm_period,
-            n_blocks - 1)
-        h_t = h[block_idx].permute(0, 2, 3, 1)               # (T,J,C,F)
-        d = apply_filters(h_t, y.permute(2, 0, 1))           # (T, J, F)
-        return overlap_add(synthesis(d.transpose(0, 1), self.win, s,
+            h.shape[1] - 1)
+        h_t = h[:, block_idx]                               # (B,T,F,J,C)
+        if p.ref_ch is not None:
+            h_t = h_t[..., p.ref_ch: p.ref_ch + 1, :]
+        d = apply_filters(h_t.permute(0, 1, 3, 4, 2),
+                          y.permute(0, 3, 1, 2))            # (B, T, J, F)
+        return overlap_add(synthesis(d.transpose(1, 2), self.win, s,
                                      self.dtype), s.frameshift)
 
+    def run(self, frames: torch.Tensor) -> torch.Tensor:
+        """(C, T, framelength) frames -> (C, n) OLA waveforms (one channel
+        with ``ref_ch``)."""
+        return self.run_lanes(frames[None], [frames.shape[1]])[0]
+
+    def chunk_lanes(self, n_lanes: int, n_frames: int, n_ch: int) -> int:
+        """Lanes a chunk, for ``n_lanes`` lanes of ``n_ch`` channels and up
+        to ``n_frames`` frames: as many as keep a chunk's tensors (six
+        (T, F, C, C) complex covariances a lane at their peak: 268 MB a
+        lane of 6 channels and 351 frames, measured on an H100) within
+        ``MEMORY_SHARE`` of the card, in chunks of equal size."""
+        if self.device.type != "cuda":
+            return n_lanes
+        total = torch.cuda.get_device_properties(self.device).total_memory
+        per_lane = 6 * n_frames * self.cfg.signal.n_bins * n_ch ** 2 \
+            * torch.empty((), dtype=self.cdtype).element_size()
+        cap = max(int(self.MEMORY_SHARE * total // per_lane), 1)
+        n_chunks = -(-n_lanes // cap)
+        return -(-n_lanes // n_chunks)
+
+    @torch.no_grad()
+    def enhance_batch(self, xs: list, quantize: bool = True,
+                      micro_batch: int | None = None) -> list[np.ndarray]:
+        """Enhance (C, n_i) multichannel utterances (int16 values, or any
+        float samples) as lanes of the offline plan: each lane's output is
+        ``enhance``'s on that lane alone, (C or 1, (n_i // hop + 1) * hop),
+        int16 after the MATLAB int16 write with ``quantize``, else the
+        float samples.  Samples cross the host as int16 (``BatchHost``);
+        ``micro_batch`` lanes a chunk, None: as many as ``chunk_lanes``
+        allows.  Traced: the ``batch.*`` spans and counters, and
+        ``pmwf.cov_frames`` (lane-frames whose covariance was built) and
+        ``pmwf.solves`` (per-bin Ncov solves: lanes x blocks x F)."""
+        s = self.cfg.signal
+        xs = [np.atleast_2d(np.asarray(x)) for x in xs]
+        frames_true = np.asarray([x.shape[1] // s.frameshift for x in xs]) \
+            + self.cfg.delay + 1
+        if micro_batch is None:
+            micro_batch = self.chunk_lanes(len(xs), int(frames_true.max()),
+                                           xs[0].shape[0])
+        n_blocks = -(-frames_true // self.params.norm_period)
+        work = {"pmwf.cov_frames": int(frames_true.sum()),
+                "pmwf.solves": int(n_blocks.sum()) * s.n_bins}
+
+        def launch(smp, n_hops, t_true):
+            frames = stream_frames_torch(smp, n_hops[:, None],
+                                         s.framelength, s.frameshift)
+            return self.run_lanes(frames, t_true)
+
+        return self._batch_host.run(xs, launch,
+                                    "int16" if quantize else "float",
+                                    micro_batch, work)
+
     def enhance(self, x: np.ndarray, quantize: bool = True) -> np.ndarray:
-        """x: (C, N) int16-scale multichannel samples -> (C or 1, N_out)."""
-        x = np.atleast_2d(np.asarray(x, np.float64))
-        frames = frames_of(x, self.cfg)
-        y = self.run(torch.as_tensor(frames, dtype=self.dtype,
-                                     device=self.device))
-        emit = emit_samples(y.cpu().numpy(), frames.shape[1], self.cfg,
-                            self.params.ref_ch)
-        return matlab_int16_write(emit) if quantize else emit
+        """x: (C, N) int16-scale multichannel samples -> (C or 1, N_out):
+        ``enhance_batch`` of one lane."""
+        return self.enhance_batch([x], quantize, micro_batch=1)[0]

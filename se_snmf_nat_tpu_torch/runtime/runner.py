@@ -127,7 +127,8 @@ class BatchRunner:
         return out_dir / f"{f.stem}{self.out_suffix}.wav"
 
     def run_multichannel(self, db_in: str | Path, db_out: str | Path,
-                         ch: int, filegap: int | None = None) -> RunReport:
+                         ch: int, filegap: int | None = None,
+                         batch_size: int = 1) -> RunReport:
         """The reference's multichannel campaign shape (run_IMCRA.m:7-30):
         the sorted file list is walked with stride ``filegap`` and each
         group of ``ch`` consecutive files forms ONE multichannel session
@@ -136,7 +137,10 @@ class BatchRunner:
         channel's output (the reference's ``fopen(path_denoise(p.ch,:))``);
         enhancers that emit one reference channel write only that file.  A
         group whose files differ in sample rate raises ValueError: its
-        channels would be beamformed misaligned."""
+        channels would be beamformed misaligned.  With ``batch_size`` > 1
+        and an enhancer that has ``enhance_batch``, the groups go through it
+        ``batch_size`` at a time as its lanes (each lane's output is the
+        group's own), else one ``enhance`` a group."""
         db_in, db_out = Path(db_in), Path(db_out)
         db_out.mkdir(parents=True, exist_ok=True)
         filegap = ch if filegap is None else int(filegap)
@@ -146,40 +150,55 @@ class BatchRunner:
                        if p.suffix.lower() == ".wav")
         report = RunReport()
         t0 = time.perf_counter()
+        todo = []
         for j in range(0, len(files) - ch + 1, filegap):
             group = files[j: j + ch]
             if (self._out_path(group[-1], db_out).exists()
                     and not self.force_rewrite):
                 report.skipped.extend(f.name for f in group)
-                continue
-            chans, rates = [], []
+            else:
+                todo.append(group)
+        batched = batch_size > 1 and hasattr(self.enhancer, "enhance_batch")
+        step = batch_size if batched else 1
+        for c in range(0, len(todo), step):
+            chunk = todo[c: c + step]
+            stacks, fss = [], []
             with report.timer.stage("io_read"):
-                for f in group:
-                    x, fs = read_wav_int16(f)
-                    chans.append(x)
-                    rates.append(fs)
-                count(FILES, len(group))
-            if len(set(rates)) > 1:
-                raise ValueError(
-                    "channel group with differing sample rates: "
-                    + ", ".join(f"{f.name}={r}" for f, r in zip(group, rates)))
-            n = min(len(c) for c in chans)
-            stacked = np.stack([c[:n] for c in chans])
-            report.seconds_audio += n / rates[0]
-            report.timer.add_audio(n / rates[0])
+                for group in chunk:
+                    chans, rates = [], []
+                    for f in group:
+                        x, fs = read_wav_int16(f)
+                        chans.append(x)
+                        rates.append(fs)
+                    count(FILES, len(group))
+                    if len(set(rates)) > 1:
+                        raise ValueError(
+                            "channel group with differing sample rates: "
+                            + ", ".join(f"{f.name}={r}"
+                                        for f, r in zip(group, rates)))
+                    n = min(len(x) for x in chans)
+                    stacks.append(np.stack([x[:n] for x in chans]))
+                    fss.append(rates[0])
+            for stacked, fs in zip(stacks, fss):
+                report.seconds_audio += stacked.shape[1] / fs
+                report.timer.add_audio(stacked.shape[1] / fs)
             with report.timer.stage("enhance"):
-                y = np.atleast_2d(self.enhancer.enhance(stacked))
+                ys = (self.enhancer.enhance_batch(stacks) if batched
+                      else [self.enhancer.enhance(stacks[0])])
             with report.timer.stage("io_write"):
-                if y.shape[0] == ch:               # per-channel outputs
-                    for f, row in zip(group, y):
-                        write_wav_int16(self._out_path(f, db_out), row,
-                                        rates[0])
-                else:                              # single reference channel
-                    write_wav_int16(self._out_path(group[-1], db_out),
-                                    y[0], rates[0])
-            report.processed.extend(f.name for f in group)
-            if self.verbose:
-                print(f"[mc x{ch}] {group[-1].name}")
+                for group, y, fs in zip(chunk, ys, fss):
+                    y = np.atleast_2d(y)
+                    if y.shape[0] == ch:               # per-channel outputs
+                        for f, row in zip(group, y):
+                            write_wav_int16(self._out_path(f, db_out), row,
+                                            fs)
+                    else:                          # single reference channel
+                        write_wav_int16(self._out_path(group[-1], db_out),
+                                        y[0], fs)
+            for group in chunk:
+                report.processed.extend(f.name for f in group)
+                if self.verbose:
+                    print(f"[mc x{ch}] {group[-1].name}")
         report.seconds_wall = time.perf_counter() - t0
         return report
 
@@ -189,7 +208,8 @@ class BatchRunner:
         if ch < 1:
             raise ValueError("ch must be >= 1")
         if ch > 1:
-            return self.run_multichannel(db_in, db_out, ch, filegap)
+            return self.run_multichannel(db_in, db_out, ch, filegap,
+                                         batch_size)
         db_in, db_out = Path(db_in), Path(db_out)
         db_out.mkdir(parents=True, exist_ok=True)
         files = sorted(p for p in db_in.iterdir()

@@ -5,9 +5,8 @@ config where ``supports_fast_plan`` holds) and the exact per-frame plan
 (``block_adapt=0`` on every other config, and wherever a state is carried
 in or out).
 
-  host:   each lane's true samples as int16, packed into a page-locked
-          buffer (float lanes: one exactness test; else the float sample
-          matrix)
+  host:   the int16 host half (``stream/batch_host.BatchHost``): each
+          lane's true samples packed as int16, one upload a chunk
   device: the zero-padded sample matrix -> framing -> analysis ->
           block-adaptive run, fast run or the frame loop over
           ``Engine.step`` -> synthesis -> OLA -> MATLAB-exact int16 write ->
@@ -21,8 +20,6 @@ independent columns (fast plan), and their outputs are sliced off.
 
 from __future__ import annotations
 
-import threading
-
 import numpy as np
 import torch
 from torch import nn
@@ -30,27 +27,19 @@ from torch import nn
 from se_snmf_nat_tpu_torch.config import PipelineConfig, default_config
 from se_snmf_nat_tpu_torch.device import full_f32, host_array, resolve_device
 from se_snmf_nat_tpu_torch.dsp.stft import (
-    analysis_frames, dft_matrices_stacked, overlap_add,
-    pack_samples_for_upload, stream_frames, stream_frames_torch,
-    synthesis_frames)
+    analysis_frames, dft_matrices_stacked, overlap_add, stream_frames,
+    stream_frames_torch, synthesis_frames)
 from se_snmf_nat_tpu_torch.dsp.windows import sqrt_hann_periodic
 from se_snmf_nat_tpu_torch.enhance.engine import make_engine
 from se_snmf_nat_tpu_torch.enhance.state import (
     EngineState, batch_state, lane_state)
 from se_snmf_nat_tpu_torch.io.wavio import enhanced_quantize
-from se_snmf_nat_tpu_torch.runtime.profiling import count, request, stage
+from se_snmf_nat_tpu_torch.stream.batch_host import BatchHost
 from se_snmf_nat_tpu_torch.stream.block_adaptive import (
     BlockStep, make_block_adaptive_run, make_block_step, ring_ptr0,
     rings_to_shift_layout)
 from se_snmf_nat_tpu_torch.stream.fast_pipeline import (
     make_fast_run, supports_fast_plan)
-from se_snmf_nat_tpu_torch.utils.matlab_compat import (
-    matlab_int16_write_torch, matlab_wavwrite_table)
-
-
-def _pow2(n: int) -> int:
-    """The least power of two at or above ``n`` (1 for 0)."""
-    return 1 << max(n - 1, 0).bit_length()
 
 
 class SnmfEnhancer(nn.Module):
@@ -118,29 +107,10 @@ class SnmfEnhancer(nn.Module):
             self.fast_run = make_fast_run(self.cfg, b1_x, b1_d, b2_x, b2_d,
                                           self.device, dtype, dft_matmul)
         self._state0 = self.engine.init_state(dtype, matlab_ad_blk_init)
-        # enhance_batch's host half: the wavwrite requantisation as a table,
-        # host buffers and a column index kept across calls
-        self._wav_table = torch.as_tensor(matlab_wavwrite_table(),
-                                          device=self.device)
-        self._host_bufs: dict[str, torch.Tensor] = {}
-        self._cols = torch.zeros(0, dtype=torch.int64, device=self.device)
-        self._batch_lock = threading.Lock()
-
-    def _host_buffer(self, key: str, n: int, dtype) -> torch.Tensor:
-        """The first ``n`` elements of the host buffer ``key``, kept across
-        calls (page-locked when this enhancer is on a card), grown to a
-        power of two when short."""
-        buf = self._host_bufs.get(key)
-        if buf is None or buf.numel() < n:
-            buf = self._host_bufs[key] = torch.empty(
-                _pow2(n), dtype=dtype, pin_memory=self.device.type == "cuda")
-        return buf[:n]
-
-    def _columns(self, n: int) -> torch.Tensor:
-        """0..n-1 (int64) on the device, kept across calls."""
-        if self._cols.numel() < n:
-            self._cols = torch.arange(_pow2(n), device=self.device)
-        return self._cols[:n]
+        # enhance_batch's host half, its buffers kept across calls
+        self._batch_host = BatchHost(self.device, dtype, s.frameshift,
+                                     self.cfg.delay, self.frame_bucket)
+        self._host_bufs = self._batch_host._bufs
 
     def on_device(self, device) -> "SnmfEnhancer":
         """This enhancer on ``device``: itself when it is there, else one
@@ -337,127 +307,27 @@ class SnmfEnhancer(nn.Module):
     @torch.no_grad()
     def enhance_batch(self, xs: list[np.ndarray], quantize: bool = True,
                       micro_batch: int | None = 32):
-        """Enhance a batch of utterances (padded to the longest bucket).
+        """Enhance a batch of utterances (padded to the longest bucket)
+        through the shared int16 host half (``stream/batch_host.BatchHost``:
+        int16 packing and one upload a chunk, framing, the MATLAB int16
+        write and, with ``quantize``, the wavwrite requantisation on the
+        device, a page-locked fetch and a copy a lane).  ``micro_batch``
+        splits the batch into fixed-size chunks, all enqueued before any
+        result is fetched; the tail chunk is padded with silent lanes.
+        None = one chunk.  With ``quantize=False`` the floats returned are
+        the int16-written values.  Traced: the ``batch.*`` spans and
+        counters of ``BatchHost.run``."""
+        s = self.cfg.signal
+        states: dict[int, EngineState] = {}
 
-        Samples cross the host as int16 at both ends.  Each lane's true
-        hops go into one page-locked int16 buffer, packed one after another
-        with a zero after each (an int16 lane as it is; a float lane after
-        one test that its samples are int16 values), and go up in one copy
-        a chunk; on the device one gather lays them into the zero-padded
-        sample matrix.  If a float lane is not int16 values, the call
-        uploads the float sample matrix instead.  Framing, the MATLAB int16
-        write and, with ``quantize``, the wavwrite requantisation (a
-        gather of ``matlab_wavwrite_table``) run on the device; the int16
-        PCM comes back into a page-locked buffer and each lane's output is
-        a copy of its slice.  ``micro_batch`` splits the batch into
-        fixed-size chunks, all enqueued before any result is fetched; the
-        tail chunk is padded with silent lanes.  None = one chunk.  With
-        ``quantize=False`` the floats returned are the int16-written values.
+        def launch(smp, n_hops, t_true):
+            mb = smp.shape[0]
+            if self.fast_run is None and mb not in states:
+                states[mb] = batch_state(self._state0, mb)
+            frames = stream_frames_torch(smp, n_hops, s.framelength,
+                                         s.frameshift)
+            return self.run_frames(frames, states.get(mb), t_true)[0]
 
-        Traced, the call is tiled by the spans ``batch.prep`` (packing and
-        the upload), ``batch.launch`` (the layout, framing, the run, the
-        int16 write and requantisation), ``batch.fetch`` (the PCM to the
-        host) and ``batch.emit`` (a copy a lane), each chunk with its own
-        prep, launch and fetch; the counters ``batch.frames_computed``
-        (lanes x the bucket's frames) and ``batch.frames_true`` (the real
-        lanes' hops + delay + 1) give the padding, ``batch.lanes`` and
-        ``batch.lanes_int16`` the real lanes and those sent as int16."""
-        with self._batch_lock, request("batch.prep"):
-            s = self.cfg.signal
-            shift = s.frameshift
-            n_flush = self.cfg.delay + 1
-            n_hops_all = np.asarray([len(x) // shift for x in xs], np.int64)
-            t_true_all = n_hops_all + n_flush
-            t_max = -(-int(t_true_all.max()) // self.frame_bucket) \
-                * self.frame_bucket
-            np_dt = np.float64 if self.dtype == torch.float64 else np.float32
-            mb = len(xs) if not micro_batch else min(int(micro_batch),
-                                                     len(xs))
-            states = batch_state(self._state0, mb) \
-                if self.fast_run is None else None
-            # lane g's true samples at [ends[g] - lens[g], ends[g]), a zero
-            # at ends[g] (the trailing partial hop drops)
-            lens = n_hops_all * shift
-            ends = np.cumsum(lens + 1) - 1
-            stage_t = self._host_buffer("samples", int(ends[-1]) + 1,
-                                        torch.int16)
-            packed = stage_t.numpy()
-            exact = True
-            with np.errstate(invalid="ignore"):
-                for x, e, m in zip(xs, ends, lens):
-                    a = np.asarray(x)[:m]
-                    dst = packed[e - m: e]
-                    np.copyto(dst, a, casting="unsafe")
-                    packed[e] = 0
-                    if a.dtype != np.int16 and not np.array_equal(dst, a):
-                        exact = False
-                        break
-            count("batch.lanes", len(xs))
-            count("batch.lanes_int16", len(xs) if exact else 0)
-            n_chunks = -(-len(xs) // mb)
-            lanes_t = self._host_buffer("lanes", n_chunks * 3 * mb,
-                                        torch.int64).view(n_chunks, 3, mb)
-            cols = self._columns(t_max * shift)
-
-            def upload(c, g0, g1):
-                """Chunk c's packed samples and its lanes' (3, mb) hops,
-                first samples and zeros, the last two counted from the
-                chunk's first sample (a silent lane's at the last zero), on
-                the device."""
-                r0, r1 = int(ends[g0] - lens[g0]), int(ends[g1 - 1])
-                meta = lanes_t[c].numpy()
-                meta[:] = [[0], [r1 - r0], [r1 - r0]]
-                meta[0, : g1 - g0] = n_hops_all[g0:g1]
-                meta[2, : g1 - g0] = ends[g0:g1] - r0
-                meta[1, : g1 - g0] = meta[2, : g1 - g0] - lens[g0:g1]
-                return (stage_t[r0: r1 + 1].to(self.device, non_blocking=True),
-                        lanes_t[c].to(self.device, non_blocking=True))
-
-            def dispatch(c):
-                stage("batch.prep")
-                g0, g1 = c * mb, min((c + 1) * mb, len(xs))
-                count("batch.frames_computed", mb * t_max)
-                count("batch.frames_true", int(t_true_all[g0:g1].sum()))
-                tt = np.full((mb,), n_flush, np.int64)
-                tt[: g1 - g0] = t_true_all[g0:g1]
-                if exact:
-                    packed_dev, lanes = upload(c, g0, g1)
-                    nh = lanes[0]
-                else:
-                    smp = np.zeros((mb, t_max * shift), np.float64)
-                    for i in range(g1 - g0):
-                        smp[i, : lens[g0 + i]] = \
-                            np.asarray(xs[g0 + i])[: lens[g0 + i]]
-                    nh = np.zeros((mb,), np.int64)
-                    nh[: g1 - g0] = n_hops_all[g0:g1]
-                    smp_dev = torch.as_tensor(
-                        pack_samples_for_upload(smp, np_dt),
-                        device=self.device).to(self.dtype)
-                stage("batch.launch")
-                if exact:       # lane i's samples, then its zero repeated
-                    idx = cols + lanes[1, :, None]
-                    smp_dev = packed_dev.to(self.dtype)[
-                        torch.minimum(idx, lanes[2, :, None], out=idx)]
-                frames = stream_frames_torch(
-                    smp_dev, torch.as_tensor(nh, device=self.device),
-                    s.framelength, shift)
-                ys, _ = self.run_frames(frames, states, tt)
-                pcm = matlab_int16_write_torch(ys)          # on the device
-                # an int16 value indexes the table as a negative index does
-                return self._wav_table[pcm.long()] if quantize else pcm
-
-            pending = [dispatch(c) for c in range(n_chunks)]
-            outs = []
-            start = self.cfg.delay * shift
-            for ci, pcm in enumerate(pending):
-                stage("batch.fetch")
-                host = self._host_buffer("pcm", pcm.numel(), torch.int16)
-                ys = host.view(pcm.shape).copy_(pcm).numpy()
-                stage("batch.emit")
-                for i in range(min(mb, len(xs) - ci * mb)):
-                    g = ci * mb + i
-                    emit = ys[i, start: start
-                              + (int(t_true_all[g]) - self.cfg.delay) * shift]
-                    outs.append(emit.copy() if quantize
-                                else emit.astype(np.float64))
-            return outs
+        return self._batch_host.run(xs, launch,
+                                    "wav" if quantize else "written",
+                                    micro_batch)

@@ -23,6 +23,7 @@ def _run(code: str, cwd=ROOT, env_extra=None):
 
 @pytest.mark.parametrize("module", [
     "se_snmf_nat_tpu_torch.stream.pipeline",
+    "se_snmf_nat_tpu_torch.stream.batch_host",
     "se_snmf_nat_tpu_torch.headline",
     "se_snmf_nat_tpu_torch.kernels.mu",
     "se_snmf_nat_tpu_torch.kernels.gain",
