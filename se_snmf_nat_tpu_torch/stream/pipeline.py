@@ -16,6 +16,11 @@ in or out).
 Utterances batch as lanes; right-padding with zero frames is inert because
 padding frames leave the state untouched (block and exact plans) or are
 independent columns (fast plan), and their outputs are sliced off.
+
+On the card the exact plan's frame loop runs as replays of CUDA graphs
+(``_FrameGraph``), as the block plan's block step does: ``Engine.step``
+launches ~108 kernels a frame, and the host takes longer to launch them
+than the card takes to run them.
 """
 
 from __future__ import annotations
@@ -34,12 +39,142 @@ from se_snmf_nat_tpu_torch.enhance.engine import make_engine
 from se_snmf_nat_tpu_torch.enhance.state import (
     EngineState, batch_state, lane_state)
 from se_snmf_nat_tpu_torch.io.wavio import enhanced_quantize
+from se_snmf_nat_tpu_torch.kernels.mu import captured_launches, count_replay
+from se_snmf_nat_tpu_torch.runtime.profiling import count
 from se_snmf_nat_tpu_torch.stream.batch_host import BatchHost
 from se_snmf_nat_tpu_torch.stream.block_adaptive import (
     BlockStep, make_block_adaptive_run, make_block_step, ring_ptr0,
     rings_to_shift_layout)
 from se_snmf_nat_tpu_torch.stream.fast_pipeline import (
     make_fast_run, supports_fast_plan)
+
+# frames a replay of the graphed loop where it runs more than that (a
+# shorter loop takes one graph of its own length): on an H100 a call of 16
+# lanes takes the same time within 2% at 8 to 64, and a capture of 16
+# frames stays under ~40 ms
+FRAME_CHUNK = 16
+
+
+def frame_chunk(engine, state: EngineState, mag: torch.Tensor,
+                l: torch.Tensor, lim: torch.Tensor, masked: bool):
+    """``mag.shape[1]`` consecutive steps of ``engine`` on the spectra
+    mag (B, C, F), frame c of a lane carrying the number ``l + c`` (l: a
+    (B,) int64 tensor).  With ``masked``, a lane whose number has reached
+    its ``lim`` (B,), past its last real frame, keeps its state and outputs
+    zero, as in ``SnmfEnhancer.frame_loop``.  It reads no device value on
+    the host: this is what a ``_FrameGraph`` captures.  Returns (state,
+    outputs): each output of the step stacked over the frames, (B, C,
+    ...)."""
+    outs = []
+    for c in range(mag.shape[1]):
+        lc = l if c == 0 else l + c
+        new_state, out = engine.step(state, mag[:, c], lc)
+        out = out if isinstance(out, tuple) else (out,)
+        if masked:
+            valid = lc < lim
+            new_state = EngineState(*(_where_lanes(valid, a, b)
+                                      for a, b in zip(new_state, state)))
+            out = tuple(_where_lanes(valid, o, torch.zeros_like(o))
+                        for o in out)
+        state = new_state
+        outs.append(out)
+    return state, tuple(torch.stack(o, dim=1) if len(o) > 1
+                        else o[0].unsqueeze(1) for o in zip(*outs))
+
+
+def _where_lanes(valid: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """a in the lanes where ``valid`` (B,) holds, else b (a itself where
+    the two are one tensor)."""
+    if a is b:
+        return a
+    return torch.where(valid.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
+def _copy_fields(dsts, srcs) -> None:
+    """``dst.copy_(src)`` for each pair that is not one tensor, one foreach
+    launch a pair of dtypes."""
+    groups: dict = {}
+    for dst, src in zip(dsts, srcs):
+        if dst is not src:
+            ds, ss = groups.setdefault((dst.dtype, src.dtype), ([], []))
+            ds.append(dst)
+            ss.append(src)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+class _FrameGraph:
+    """``frame_chunk`` of one engine on B lanes, captured as CUDA graphs
+    that share their inputs: the state, each lane's next frame number ``l``
+    and its limit ``lim`` live in static buffers, which a replay reads and
+    rewrites (the chunk's last state, ``l`` advanced by C), so consecutive
+    replays chain on the card with no copy between them.  One graph a
+    (C, masked); a replay takes its chunk's spectra into that graph's
+    buffer and leaves its outputs (B, C, ...) in static buffers that the
+    graph's next replay overwrites.  ``load`` puts a caller's state in,
+    ``take`` gives a copy of it out that no replay overwrites.
+
+    The graphs of an enhancer share one memory pool: what a replay writes
+    of the scratch of another graph, that graph writes afresh when it
+    replays, and every buffer a replay leaves for the host is allocated
+    outside the pool.  A graph is captured right after the same chunk has
+    run eagerly (the warm-up ``torch.cuda.graph`` asks for); the capture
+    runs nothing and counts nothing."""
+
+    def __init__(self, state: EngineState, device):
+        self.device = device
+        self.state = EngineState(*(
+            torch.zeros_like(f, memory_format=torch.contiguous_format)
+            for f in state))
+        n_lanes = state.b_d_head.shape[0]
+        self.l = torch.zeros((n_lanes,), dtype=torch.int64, device=device)
+        self.lim = torch.zeros_like(self.l)
+        self.graphs: dict[tuple[int, bool], tuple] = {}
+
+    def load(self, state: EngineState, l, lim) -> None:
+        _copy_fields(self.state, state)
+        for buf, v in ((self.l, l), (self.lim, lim)):
+            if torch.is_tensor(v):
+                buf.copy_(v)
+            else:
+                buf.fill_(v)
+
+    def take(self) -> EngineState:
+        out = EngineState(*map(torch.empty_like, self.state))
+        _copy_fields(out, self.state)
+        return out
+
+    def capture(self, engine, key: tuple[int, bool], outs, pool) -> None:
+        c, masked = key
+        state, l, lim = self.state, self.l, self.lim
+        mag = torch.zeros((l.shape[0], c, engine.cfg.signal.n_bins),
+                          dtype=engine.dtype, device=self.device)
+        out_bufs = tuple(torch.zeros_like(o) for o in outs)
+
+        # the body holds no reference to self: a cycle through the graph
+        # would leave its release to the cyclic collector, which may run
+        # inside a later capture, where a graph may not be reset
+        def body():
+            st, got = frame_chunk(engine, state, mag, l, lim, masked)
+            _copy_fields(state, st)
+            _copy_fields(out_bufs, got)
+            l.add_(c)
+
+        with torch.cuda.device(self.device):    # the capture stream's card
+            graph = torch.cuda.CUDAGraph()
+            with torch.no_grad(), captured_launches() as tally, \
+                    torch.cuda.graph(graph, pool=pool):
+                body()
+        self.graphs[key] = (graph, mag, out_bufs, dict(tally), body)
+
+    def replay(self, key: tuple[int, bool], mag: torch.Tensor):
+        graph, buf, outs, launches, _ = self.graphs[key]
+        buf.copy_(mag)
+        with torch.cuda.device(self.device):
+            graph.replay()
+        count_replay(launches)
+        return outs
 
 
 class SnmfEnhancer(nn.Module):
@@ -82,6 +217,11 @@ class SnmfEnhancer(nn.Module):
                                   self.device, dtype)
         self._source_engine = None          # built by separate()
         self._session_steps: dict[int, BlockStep] = {}   # by block_step()
+        # the frame loop on the kernel route as CUDA graph replays: one
+        # _FrameGraph an (engine, lanes), all in one memory pool
+        self._graph_frames = self.device.type == "cuda"
+        self._frame_graphs: dict[tuple, _FrameGraph] = {}
+        self._frame_pool = None
 
         def t(a):
             return torch.as_tensor(a, dtype=dtype, device=self.device)
@@ -146,11 +286,23 @@ class SnmfEnhancer(nn.Module):
         (B host integers) counts each lane's real frames: past them a lane's
         state stays as it is and its output is zero, and past the longest
         lane nothing runs.  Returns (state, outputs): each output of the
-        step stacked over the frames, (B, T, ...)."""
+        step stacked over the frames, (B, T, ...).
+
+        On the card, where both of the engine's solvers are kernels, the
+        loop runs as replays of CUDA graphs of ``frame_chunk``
+        (``_graphed_frame_loop``); elsewhere step by step.  Counters:
+        ``frame.steps`` (the frames stepped) and ``frame.steps_graphed``
+        (those of them stepped inside a replay)."""
         n_valid = np.asarray(n_valid).reshape(-1)
         n_lanes, t = mag.shape[:2]
+        n_run = min(t, int(n_valid.max()))
+        count("frame.steps", n_run)
+        if (self._graph_frames
+                and engine.h_solver == engine.w_solver == "kernel"):
+            return self._graphed_frame_loop(engine, mag, state, n_valid, l0,
+                                            n_run)
         outs = []
-        for i in range(min(t, int(n_valid.max()))):
+        for i in range(n_run):
             new_state, out = engine.step(state, mag[:, i], l0 + i)
             out = out if isinstance(out, tuple) else (out,)
             if i >= int(n_valid.min()):
@@ -169,6 +321,70 @@ class SnmfEnhancer(nn.Module):
             pad = first.new_zeros((n_lanes, t - len(outs)) + first.shape[1:])
             stacked.append(torch.cat([seq, pad], dim=1))
         return state, tuple(stacked)
+
+    def _graphed_frame_loop(self, engine, mag: torch.Tensor,
+                            state: EngineState, n_valid: np.ndarray, l0,
+                            n_run: int):
+        """``frame_loop`` as replays of its ``_FrameGraph``: chunks of
+        ``FRAME_CHUNK`` frames (all ``n_run`` where fewer), the tail a chunk
+        of its own length; a chunk that reaches past the shortest lane's
+        end takes the masked graph.  The state goes into the graphs' buffers
+        once a call and comes out once; between replays it stays on the
+        card.  The first chunk of each (lanes, C, masked) runs eagerly
+        through ``frame_chunk`` and is then captured."""
+        n_lanes, t = mag.shape[:2]
+        dev = mag.device
+        fg = self._frame_graphs.get((engine, n_lanes))
+        if fg is None:
+            fg = self._frame_graphs[(engine, n_lanes)] = _FrameGraph(state,
+                                                                     dev)
+        short = int(n_valid.min())
+        # each lane's first frame number and the number past its last real
+        # frame: host integers where one serves every lane
+        l = (l0.reshape(-1).to(device=dev, dtype=torch.int64)
+             if torch.is_tensor(l0) else int(l0))
+        if short == int(n_valid.max()):
+            lim = l + short
+        elif torch.is_tensor(l):
+            lim = l + torch.as_tensor(n_valid, dtype=torch.int64, device=dev)
+        else:
+            lim = torch.as_tensor(l + n_valid, dtype=torch.int64, device=dev)
+
+        def lanes(v):
+            return v if torch.is_tensor(v) else torch.full(
+                (n_lanes,), v, dtype=torch.int64, device=dev)
+
+        chunk = min(n_run, FRAME_CHUNK)
+        outs = None
+        resident = False            # the state lives in fg's buffers
+        i = 0
+        while i < n_run:
+            c = min(chunk, n_run - i)
+            key = (c, i + c > short)
+            if key in fg.graphs:
+                if not resident:
+                    fg.load(state, l + i, lim)
+                    resident = True
+                got = fg.replay(key, mag[:, i: i + c])
+                count("frame.steps_graphed", c)
+            else:
+                if resident:
+                    state = fg.take()
+                    resident = False
+                state, got = frame_chunk(engine, state, mag[:, i: i + c],
+                                         lanes(l + i), lanes(lim), key[1])
+                if self._frame_pool is None:
+                    with torch.cuda.device(dev):
+                        self._frame_pool = torch.cuda.graph_pool_handle()
+                fg.capture(engine, key, got, self._frame_pool)
+            if outs is None:            # zeros past n_run, if any
+                alloc = torch.empty if n_run == t else torch.zeros
+                outs = tuple(alloc((n_lanes, t) + o.shape[2:], dtype=o.dtype,
+                                   device=dev) for o in got)
+            for dst, src in zip(outs, got):
+                dst[:, i: i + c].copy_(src)
+            i += c
+        return (fg.take() if resident else state), outs
 
     def _run_exact(self, frames: torch.Tensor, state: EngineState, n_valid):
         """Analysis, the frame loop, synthesis and overlap-add of
