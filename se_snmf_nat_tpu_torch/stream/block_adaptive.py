@@ -39,6 +39,7 @@ from se_snmf_nat_tpu_torch.kernels.mu import (
     captured_launches, count_replay, mu_h_solve_lanes, mu_w_solve_lanes)
 from se_snmf_nat_tpu_torch.nmf.solver import (
     SnmfParams, snmf_h_solve_columns, snmf_solve)
+from se_snmf_nat_tpu_torch.runtime.profiling import count
 from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_v4_rand_matrix
 
 H_SOLVE_FLR = 1e-9    # the solvers' floor in the reference plan (not
@@ -104,7 +105,9 @@ class BlockStep(nn.Module):
     captured once for each lane count and K (``_BlockGraph``, all of a
     step's graphs in one memory pool) and replayed for each block; a
     capture that fails raises.  ``eager`` is the step itself, which a
-    comparison may call in the graph's place."""
+    comparison may call in the graph's place.  Counters: ``block.steps``
+    (the blocks stepped, every route) and ``block.steps_graphed`` (those
+    of them stepped by a graph's replay), host integers."""
 
     def __init__(self, cfg: PipelineConfig, b1_x, b1_d, b2_x=None, b2_d=None,
                  device=None, dtype=torch.float32, k_block: int = 16,
@@ -167,6 +170,7 @@ class BlockStep(nn.Module):
     def forward(self, state: EngineState, ring_ptr: torch.Tensor,
                 mag_blk: torch.Tensor, ls, ok_blk: torch.Tensor):
         ls = torch.as_tensor(ls, device=mag_blk.device)
+        count("block.steps", 1)
         if not self._use_graph:
             return self.eager(state, ring_ptr, mag_blk, ls, ok_blk)
         key = tuple(mag_blk.shape[:2])
@@ -177,6 +181,7 @@ class BlockStep(nn.Module):
             out = self.eager(state, ring_ptr, mag_blk, ls, ok_blk)
             self._graphs[key] = _BlockGraph(self, state, ring_ptr, mag_blk)
             return out
+        count("block.steps_graphed", 1)
         return graph(state, ring_ptr, mag_blk, ls, ok_blk)
 
     def eager(self, state: EngineState, ring_ptr: torch.Tensor,

@@ -32,13 +32,20 @@ class Block:
         self.k = emit.shape[1]
         self.queue0 = chains[0][:, :framelength]
 
+    @property
+    def chain(self) -> np.ndarray | None:
+        """``queue0`` followed by the block's hops, (N, framelength + K *
+        frameshift): the block's frames are its windows after the first;
+        None where a queue zeroed in mid-block broke the shift chain."""
+        return self._chains[0] if len(self._chains) == 1 else None
+
     @cached_property
     def hops(self) -> np.ndarray | None:
         """The block's samples (N, K, frameshift); None where a queue
         zeroed in mid-block broke the shift chain from ``queue0``."""
-        if len(self._chains) > 1:
+        ext = self.chain
+        if ext is None:
             return None
-        ext = self._chains[0]
         return ext[:, self._n:].reshape(ext.shape[0], self.k, self._shift)
 
     @cached_property

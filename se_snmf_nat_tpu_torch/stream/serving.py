@@ -17,13 +17,15 @@ on the host.
 
 Wire formats.  The hold, the queue, the clocks and the pending block are a
 ``stream.hops.HopFramer``; the overlap-add history stays on the device and
-the output hops come down.  ``wire="frames"`` uploads (B, K, framelength)
-frames.  ``wire="samples"`` uploads a block's hops (int16 when they are
-integer-valued), frames them from a queue kept on the device, applies
-MATLAB's int16 write there and downloads int16 PCM; a block that is not one
-shift chain (a partial block, a queue zeroed in mid-block) goes through the
-frames path, and the next samples tick after it, or after a queue zeroed
-between blocks, uploads the framer's queue.  ``pipeline_ticks`` (samples
+the output hops come down.  ``wire="frames"`` uploads a block's queue
+and hops and frames them on the device ((B, K, framelength) frames where a
+queue zeroed in mid-block broke the shift chain).  ``wire="samples"``
+uploads a block's hops (int16 when they are integer-valued), frames them
+from a queue kept on the device, applies MATLAB's int16 write there and
+downloads int16 PCM; a block that is not one shift chain (a partial block,
+a queue zeroed in mid-block) goes through the frames path, and the next
+samples tick after it, or after a queue zeroed between blocks, uploads the
+framer's queue.  ``pipeline_ticks`` (samples
 wire) returns tick n-1 while tick n is in flight: on the card the PCM of a
 tick is copied into pinned host memory without blocking and an event marks
 it; the next push waits on that event only.  ``drain`` settles the last
@@ -36,11 +38,11 @@ introduces.
 
 Traced (``runtime.profiling``), a push is tiled by the spans of
 ``StreamingSession``'s stages: ``stream.prep`` (the hold, the queue, the
-hops or frames stacked, the int16 test, the uploads), ``stream.launch``
-(``_device_tick``, or analysis, the frame loop or block step, synthesis and
-the overlap-add), ``stream.fetch`` (the PCM or hops to the host, or the
-pipelined tick's settle) and ``stream.emit`` (``_assemble``, the final
-stack).
+hops, chain or frames stacked and cast, the int16 test, the uploads),
+``stream.launch`` (``_device_tick``, or analysis, the frame loop or block
+step, synthesis and the overlap-add), ``stream.fetch`` (the PCM or hops to
+the host, or the pipelined tick's settle) and ``stream.emit``
+(``_assemble``, the final stack).
 """
 
 from __future__ import annotations
@@ -54,7 +56,16 @@ from se_snmf_nat_tpu_torch.io.wavio import enhanced_quantize
 from se_snmf_nat_tpu_torch.runtime.profiling import request, stage
 from se_snmf_nat_tpu_torch.stream.block_adaptive import ring_ptr0
 from se_snmf_nat_tpu_torch.stream.hops import HopFramer, overlap_add_hops
-from se_snmf_nat_tpu_torch.utils.matlab_compat import matlab_int16_write_torch
+from se_snmf_nat_tpu_torch.utils.matlab_compat import (
+    matlab_int16_write_torch, matlab_wavwrite_table)
+
+
+def _pcm(hops: np.ndarray) -> np.ndarray:
+    """``enhanced_quantize`` of (B, ...) float hops, 16 lanes at a time."""
+    out = np.empty(hops.shape, np.int16)
+    for i in range(0, hops.shape[0], 16):
+        out[i:i + 16] = enhanced_quantize(hops[i:i + 16])
+    return out
 
 
 class MultiStreamSession:
@@ -137,6 +148,7 @@ class MultiStreamSession:
         if use_block_adaptive and self._block > 1:
             self._ba_step = enhancer.block_step(self._block)
         self._ba_ptr = ring_ptr0(self.n, self._dev)
+        self._wav_table = None
         self._samples = wire == "samples"
         self._pipeline = bool(pipeline_ticks)
         self._inflight = None
@@ -172,12 +184,14 @@ class MultiStreamSession:
         return t.clone()
 
     @torch.no_grad()
-    def _tick(self, block) -> list[tuple[np.ndarray, np.ndarray]]:
+    def _tick(self, block,
+              pcm: bool = False) -> list[tuple[np.ndarray, np.ndarray]]:
         """Run a framed block through one call on the device; returns one
         ((B, K, frameshift) hops, (B, K) emission mask) pair a block.  The
         mask is per lane because the lanes' clocks may differ after a
         ``reset_lanes``: a fresh lane emits nothing until its own frame
-        number passes the algorithmic delay."""
+        number passes the algorithmic delay.  ``pcm``: the caller quantises,
+        so a frames-path tick may bring its hops down as final int16 PCM."""
         if block is None:
             return []
         if self._samples and block.k == self._block \
@@ -185,7 +199,7 @@ class MultiStreamSession:
             return self._tick_samples(block)
         # frames path: settle a pipelined tick first (its audio is older
         # than this block's)
-        return self._drain_inflight() + self._tick_frames(block)
+        return self._drain_inflight() + self._tick_frames(block, pcm)
 
     def _tick_samples(self, block):
         """The samples-wire tick: raw hops up, int16 PCM down; the device
@@ -260,19 +274,37 @@ class MultiStreamSession:
         sessions owe up to one block of audio between pushes)."""
         return self._assemble(self._drain_inflight(), self.n, quantize)
 
-    def _tick_frames(self, block):
-        """The frames-wire tick: (B, k, framelength) frames up, output hops
-        down (also the samples wire's path for the blocks it cannot take)."""
-        enh = self.enh
+    def _tick_frames(self, block, pcm: bool = False):
+        """The frames-wire tick: the block's frames framed on the device
+        from its shift chain (the queue before it and its hops), or, where a
+        zeroed queue broke the chain, (B, k, framelength) frames up; output
+        hops down (also the samples wire's path for the blocks it cannot
+        take).  With ``pcm`` the hops come down as the int16 PCM
+        ``enhanced_quantize`` gives: MATLAB's int16 write in float64, the
+        host's arithmetic, and wavwrite's requantisation as one gather."""
+        enh, s = self.enh, self._s
         stage("stream.prep")
-        frames = self._upload(block.frames.astype(self._np_dtype)).to(
-            enh.dtype)
+        chain = block.chain
+        if chain is None:
+            frames = self._upload(block.frames.astype(self._np_dtype)).to(
+                enh.dtype)
+        else:
+            ext = self._upload(chain.astype(self._np_dtype)).to(enh.dtype)
+            frames = ext.unfold(1, s.framelength,
+                                s.frameshift)[:, 1:].contiguous()
         l0_dev = self._upload(block.l0)
         stage("stream.launch")
         self.state, self._ba_ptr, ys = enh.session_block(
             frames, self.state, self._ba_ptr, l0_dev, self._ba_step)
         hops, self._recent = overlap_add_hops(self._recent, ys,
                                               self._s.frameshift)
+        if pcm:
+            if self._wav_table is None:
+                self._wav_table = torch.as_tensor(matlab_wavwrite_table(),
+                                                  device=self._dev)
+            # an int16 value indexes the table as a negative index does
+            hops = self._wav_table[
+                matlab_int16_write_torch(hops.double()).long()]
         self._queue_dev = None
         stage("stream.fetch")
         hops = host_array(hops)                           # (B, k, shift)
@@ -282,14 +314,28 @@ class MultiStreamSession:
 
     @staticmethod
     def _assemble(emitted, n: int, quantize: bool) -> list[np.ndarray]:
-        """Each lane's emitted hops, concatenated (float64 with
-        ``quantize=False``)."""
+        """Each lane's emitted hops, concatenated: int16 PCM, or float64
+        with ``quantize=False``.  Hops that came down as int16 are PCM
+        already; the others are quantised here, 16 lanes at a time
+        (temporaries small enough for the heap).  Where every tick emits the
+        same hops on every lane (clocks in lockstep) the lanes are cut and
+        joined as one (n, m) array, a row a lane; the quantisation acts
+        sample by sample, so either way a lane gets what quantising its own
+        hops gives."""
+        if quantize:
+            emitted = [(hops if hops.dtype == np.int16 else _pcm(hops), emit)
+                       for hops, emit in emitted]
+        dtype = np.int16 if quantize else np.float64
+        if all((emit == emit[:1]).all() for _, emit in emitted):
+            y = np.concatenate([hops[:, emit[0]].reshape(n, -1)
+                                for hops, emit in emitted] or
+                               [np.zeros((n, 0), dtype)], axis=1)
+            return list(y.astype(dtype, copy=False))
         out = []
         for i in range(n):
             lane = [hops[i][emit[i]].reshape(-1) for hops, emit in emitted]
-            y = np.concatenate(lane) if lane else np.zeros((0,))
-            out.append(enhanced_quantize(y) if quantize
-                       else y.astype(np.float64))
+            y = np.concatenate(lane) if lane else np.zeros((0,), dtype)
+            out.append(y.astype(dtype, copy=False))
         return out
 
     def _clocks_diverged(self) -> bool:
@@ -327,7 +373,7 @@ class MultiStreamSession:
                 raise ValueError(f"push expects ({self.n}, n) samples")
             emitted = []
             for block in self._framer.push(samples):
-                emitted.extend(self._tick(block))
+                emitted.extend(self._tick(block, quantize))
             stage("stream.emit")
             return self._assemble(emitted, self.n, quantize)
 
@@ -340,7 +386,7 @@ class MultiStreamSession:
                              "zero_queue_rows and push_per_lane instead")
         emitted = []
         for block in self._framer.flush():
-            emitted.extend(self._tick(block))
+            emitted.extend(self._tick(block, quantize))
         emitted.extend(self._drain_inflight())
         return np.stack(self._assemble(emitted, self.n, quantize), axis=0)
 
@@ -358,7 +404,7 @@ class MultiStreamSession:
         if self._ba_step is not None and self._framer.pending:
             self._deferred_adapt_ops.append((lanes, bool(on)))
             return self._assemble([], self.n, quantize)
-        emitted = self._tick(self._framer.take())
+        emitted = self._tick(self._framer.take(), quantize)
         self._apply_adapt(lanes, on)
         return self._assemble(emitted, self.n, quantize)
 
